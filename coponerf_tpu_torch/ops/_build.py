@@ -1,0 +1,123 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into ONE
+shared library with a plain C interface, at first use, into
+``coponerf_tpu_torch/_build/`` (git-ignored).  The library name carries a
+hash of the sources and flags, so an edited source is never served by a
+stale build.  Nothing here runs at import time, and nothing falls back: a
+missing ``nvcc`` or a failed compile raises.
+
+Each exported function takes device pointers and the CUDA stream as
+``c_void_p`` and returns ``cudaGetLastError()`` after its launch; ``check``
+turns a non-zero code into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+]
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+L = ctypes.c_longlong
+
+# exported symbol -> argument types (pointers and the stream as c_void_p)
+SIGNATURES = {
+    # table (bf16), grid, out (bf16), B, H, W, C, P, zeros_mode, stream
+    "k1_bilinear_sample": [P, P, P, I, I, I, I, L, I, P],
+    # p0, p1, p2, pc, pt, W (K, N), bias, fk (N, NK), out, k, rows, K0, Kc, N, NK, dtype, stream
+    "k2_split_dense_relu": [P, P, P, P, P, P, P, P, P, P, L, I, I, I, I, I, P],
+    # pre, w, out, R, V, S, N, C, dtype, stream
+    "k3_weighted_sum": [P, P, P, I, I, I, I, I, I, P],
+}
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = None
+
+
+def _sources():
+    return sorted(
+        os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith((".cu", ".cuh"))
+    )
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels can only be built where the CUDA toolkit is installed")
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + f.read())
+    return os.path.join(BUILD_DIR, f"libcoponerf_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the kernels if no library for the current sources exists."""
+    global build_seconds
+    out = library_path()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if os.path.exists(out):
+                return out
+            t0 = time.perf_counter()
+            tmp = out + f".tmp{os.getpid()}"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                   *[s for s in _sources() if s.endswith(".cu")]]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+            os.replace(tmp, out)
+            build_seconds = time.perf_counter() - t0
+            return out
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def lib():
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(build())
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = handle
+        return _lib
+
+
+def check(code: int, name: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {code}")
+
+
+def stream_of(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
