@@ -17,6 +17,14 @@
 // Epipolar points of consecutive rays land on nearby rows, so most corner
 // reads hit L2.
 //
+// Second entry, k1_corner_sample: the same gather from precomputed corner
+// ids and weights (B, P, 4), replacing
+// coponerf_tpu/ops/pallas/bilinear_sample.py:onehot_matmul_sample (the
+// one-hot matmul over corner ids, reached through onehot_sample_diff).
+// Corners with idx < 0 or idx >= HW are skipped, as the one-hot matrix
+// matches no table row for them; weights stay f32 (the TPU rounded them to
+// bf16).  Output bf16 or f32.
+//
 // Padding: border clamps the coordinates into [0, size-1-1e-5]; zeros
 // scrubs NaN/Inf to the +-3e4 clip, shifts by 2 (the JAX zero-ring
 // convention, so weights are bit-identical) and reads a corner only when
@@ -84,7 +92,70 @@ __global__ void bilinear_sample_kernel(const bf16* __restrict__ table, const flo
   store16(out + bp * C + static_cast<long long>(v) * VEC, acc);
 }
 
+__device__ __forceinline__ void store8(bf16* p, const float (&v)[8]) { store16(p, v); }
+
+__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
+  const float a[4] = {v[0], v[1], v[2], v[3]};
+  const float b[4] = {v[4], v[5], v[6], v[7]};
+  store16(p, a);
+  store16(p + 4, b);
+}
+
+template <typename OutT>
+__global__ void corner_sample_kernel(const bf16* __restrict__ table, const int* __restrict__ idx,
+                                     const float* __restrict__ w, OutT* __restrict__ out, int B,
+                                     int HW, int C, long long P) {
+  constexpr int VEC = Vec16<bf16>::N;
+  const int nvec = C / VEC;
+  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (tid >= static_cast<long long>(B) * P * nvec) return;
+  const long long bp = tid / nvec;
+  const int v = static_cast<int>(tid - bp * nvec);
+  const long long b = bp / P;
+  const int4 id4 = *reinterpret_cast<const int4*>(idx + 4 * bp);
+  const float4 w4 = *reinterpret_cast<const float4*>(w + 4 * bp);
+  const int ids[4] = {id4.x, id4.y, id4.z, id4.w};
+  const float ws[4] = {w4.x, w4.y, w4.z, w4.w};
+
+  const bf16* base = table + b * HW * C + static_cast<long long>(v) * VEC;
+  float acc[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) acc[e] = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if (ids[c] < 0 || ids[c] >= HW) continue;
+    float val[VEC];
+    load16(base + static_cast<long long>(ids[c]) * C, val);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] = __fadd_rn(acc[e], __fmul_rn(val[e], ws[c]));
+  }
+  store8(out + bp * C + static_cast<long long>(v) * VEC, acc);
+}
+
 }  // namespace coponerf
+
+// table (B, HW, C) bf16, idx (B, P, 4) i32, w (B, P, 4) f32,
+// out (B, P, C) f32 (out_f32 = 1) or bf16
+extern "C" int k1_corner_sample(const void* table, const void* idx, const void* w, void* out, int B,
+                                int HW, int C, long long P, int out_f32, void* stream) {
+  using coponerf::bf16;
+  const long long total = static_cast<long long>(B) * P * (C / coponerf::Vec16<bf16>::N);
+  if (total == 0) return 0;
+  const int threads = 256;
+  const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
+  auto s = static_cast<cudaStream_t>(stream);
+  const bf16* t = static_cast<const bf16*>(table);
+  const int* i = static_cast<const int*>(idx);
+  const float* wt = static_cast<const float*>(w);
+  if (out_f32) {
+    coponerf::corner_sample_kernel<float><<<blocks, threads, 0, s>>>(t, i, wt, static_cast<float*>(out),
+                                                                      B, HW, C, P);
+  } else {
+    coponerf::corner_sample_kernel<bf16><<<blocks, threads, 0, s>>>(t, i, wt, static_cast<bf16*>(out),
+                                                                     B, HW, C, P);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 // table (B, H, W, C) bf16, grid (B, P, 2) f32, out (B, P, C) bf16
 extern "C" int k1_bilinear_sample(const void* table, const void* grid, void* out, int B, int H,

@@ -1,5 +1,6 @@
-"""Optical-flow utilities that encode() and render() use: warping,
-cyclic-consistency masks, and keypoint transfer through flow fields.
+"""Optical-flow utilities that encode(), render() and the SSIM loss use:
+warping, cyclic-consistency masks, and keypoint transfer through flow
+fields.
 
 Counterpart of the matching functions of ``coponerf_tpu/flow.py``.  Flow
 tensors are NCHW (B, 2, H, W), channel 0 = x-flow, 1 = y-flow, in pixels.
@@ -65,6 +66,33 @@ def cyclic_consistency_masks(flow_fwd, flow_bwd, out_size: int = 256, threshold:
     mask_fwd = err_fwd & get_gt_correspondence_mask(up_fwd)
     mask_bwd = err_bwd & get_gt_correspondence_mask(up_bwd)
     return up_fwd, up_bwd, mask_fwd, mask_bwd
+
+
+def ssim_warp_packed(im0, im1, flow_fwd, flow_bwd, out_size: int = 256, threshold: float = 10.0,
+                     scale: float | None = None):
+    """The SSIM loss's warps: each context image and the other direction's
+    upsampled flow packed into one 5-channel warp per direction (they share
+    the warp grid).  Returns (warped_im1, warped_im0, mask_fwd, mask_bwd),
+    equal to ``cyclic_consistency_masks`` plus two separate ``warp`` calls.
+    The packed flow channels are detached, as the JAX package stops their
+    gradient: they feed only the boolean consistency test.  The warp grid
+    keeps its gradient, so this goes through ``grid_sample_dense_nchw``,
+    never a table-only-gradient sampler."""
+    h = flow_fwd.shape[-2]
+    if scale is None:
+        scale = out_size / h
+    up_fwd = resize_nchw(flow_fwd, (out_size, out_size), align_corners=False) * scale
+    up_bwd = resize_nchw(flow_bwd, (out_size, out_size), align_corners=False) * scale
+    pf = warp(torch.cat([im1, up_bwd.detach()], dim=1), up_fwd)
+    pb = warp(torch.cat([im0, up_fwd.detach()], dim=1), up_bwd)
+    c_im = im0.shape[1]
+    warped_im1, warped_bwd = pf[:, :c_im], pf[:, c_im:]
+    warped_im0, warped_fwd = pb[:, :c_im], pb[:, c_im:]
+    err_fwd = torch.linalg.vector_norm(up_fwd + warped_bwd, dim=1) <= threshold
+    err_bwd = torch.linalg.vector_norm(up_bwd + warped_fwd, dim=1) <= threshold
+    mask_fwd = err_fwd & get_gt_correspondence_mask(up_fwd)
+    mask_bwd = err_bwd & get_gt_correspondence_mask(up_bwd)
+    return warped_im1, warped_im0, mask_fwd, mask_bwd
 
 
 def flow2kps_from_upsampled(trg_kps: torch.Tensor, up: torch.Tensor, n_pts: int):

@@ -4,6 +4,7 @@ from coponerf_tpu_torch.geometry.cameras import (
     from_homogeneous,
     get_ray_directions,
     get_ray_directions_cam,
+    geodesic_rotation_distance,
     get_ray_origin,
     lift,
     parse_intrinsics,

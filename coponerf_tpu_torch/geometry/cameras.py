@@ -159,3 +159,12 @@ def batch_project_to_other_img(kpi, di, Ki, Kj, T_itoj):
     kpi_3d_i = kpi_3d_i * di[..., None]
     kpi_3d_j = from_homogeneous(to_homogeneous(kpi_3d_i) @ T_itoj.transpose(-1, -2))
     return from_homogeneous(kpi_3d_j @ Kj.transpose(-1, -2))
+
+
+def geodesic_rotation_distance(m1: torch.Tensor, m2: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
+    """Per-pair geodesic angle between rotation matrices (radians).  ``eps``
+    > 0 clips the cosine away from +-1, so the arccos gradient stays finite
+    when the rotations align (the pose loss uses 1e-7)."""
+    m = m1 @ m2.transpose(-1, -2)
+    cos = (m[..., 0, 0] + m[..., 1, 1] + m[..., 2, 2] - 1.0) / 2.0
+    return torch.arccos(torch.clamp(cos, -1.0 + eps, 1.0 - eps))

@@ -1,18 +1,21 @@
-"""CoPoNeRF top module, inference path: ``encode`` once per stereo pair,
-``render`` per ray chunk.
+"""CoPoNeRF top module: ``encode`` once per stereo pair, ``render`` per ray
+chunk, in inference (``train=False``) and training (``train=True``).
 
-Counterpart of ``coponerf_tpu/models/coponerf.py`` (``train=False``).  The
-same algebra and the same token orders: ray-major tokens in the exact
-config, sample-major tokens (t = s*N + n) under ``fast_sampling``; the
-W2/key/value folding, the split query embeds, coarse-to-fine sampling with
-a joint softmax, the white overwrite and the cycle/depth outputs.  Feature
-maps are NHWC and render tensors (B*V, tokens, C).
+Counterpart of ``coponerf_tpu/models/coponerf.py``.  The same algebra and
+the same token orders: ray-major tokens in the exact config and in
+training, sample-major tokens (t = s*N + n) under ``fast_sampling`` in
+inference; the W2/key/value folding, the split query embeds, coarse-to-fine
+sampling with a joint softmax (inference only), the white overwrite and the
+cycle/depth outputs.  Feature maps are NHWC and render tensors
+(B*V, tokens, C).  Inference callers run under ``torch.no_grad()``.
 
-Under ``fast_sampling`` the three kernels of this package carry the
-per-sample work: ``ops.bilinear_sample`` (K1) samples every latent level,
-``ops.split_matmul`` (K2) runs W1 with the folded key head, and
-``ops.weighted_sum`` (K3) takes the attention-weighted sample sums.  The
-exact config samples with the f32 gather and also runs W1 through K2.
+Fast inference: K1 (``ops.bilinear_sample``) samples every latent level,
+K2 (``ops.split_matmul``) runs W1 with the folded key head, K3
+(``ops.weighted_sum``) takes the attention-weighted sample sums.  Fast
+training: K1 forward and K4 backward (``grid_sample_onehot``) on the
+<=64^2 levels, the 256^2 conv level through ``convmap_sample_pair``, K2
+forward with a plain-product backward.  The exact config samples with the
+f32 gather (``grid_sample_tablegrad``, K4 backward) and runs W1 through K2.
 """
 
 from __future__ import annotations
@@ -31,17 +34,14 @@ from coponerf_tpu_torch.models.layers import ConvNHWC, Dense, MLPSeq
 from coponerf_tpu_torch.models.lightfield import ResnetFC
 from coponerf_tpu_torch.models.resnet import ResNet34Encoder
 from coponerf_tpu_torch.models.ufc import UFC
-from coponerf_tpu_torch.ops.bilinear_sample import bilinear_sample
-from coponerf_tpu_torch.ops.grid_sample import grid_sample
+from coponerf_tpu_torch.ops.bilinear_sample import bilinear_sample, grid_sample_onehot, grid_sample_tablegrad
+from coponerf_tpu_torch.ops.convmap_sample import convmap_sample_pair
 from coponerf_tpu_torch.ops.resize import resize_nchw
 from coponerf_tpu_torch.ops.split_matmul import split_dense_relu
 from coponerf_tpu_torch.ops.weighted_sum import weighted_sum_smaj
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
-
-_TRAIN_MSG = "training is not ported yet (ROADMAP.md, Queue 1 item P7)"
-
 
 @dataclasses.dataclass
 class SceneState:
@@ -83,6 +83,8 @@ class CoPoNeRF(nn.Module):
 
     def __init__(self, cfg: ModelConfig = ModelConfig(), image_size: int = 256):
         super().__init__()
+        if cfg.fused_argmax:
+            raise NotImplementedError("fused_argmax needs the fused soft-argmax kernel (K5), not ported yet")
         self.cfg = c = cfg
         bf16 = c.compute_dtype == "bfloat16"
         ufc_dt = torch.bfloat16 if bf16 else None
@@ -91,6 +93,7 @@ class CoPoNeRF(nn.Module):
         stage_hw = [image_size // 16, image_size // 8, image_size // 4]
         self.feature_cost_aggregation = UFC(
             stage_hw, nhead=c.corr_heads, layer_nums=tuple(c.ufc_layer_nums), dtype=ufc_dt,
+            remat=c.remat_ufc,
         )
         self.cross_attention = CrossBlock()
         self.pose_regressor = MLPSeq(2 * (256 + 6) * 256, (512, 256, 256), act_last=True)
@@ -116,10 +119,9 @@ class CoPoNeRF(nn.Module):
     # encode: features, correspondence, relative pose
     # ------------------------------------------------------------------ #
 
-    @torch.no_grad()
     def encode(self, batch: Dict[str, Any], train: bool = False) -> SceneState:
-        if train:
-            raise NotImplementedError(_TRAIN_MSG)
+        """``train`` normalises the encoder's BatchNorms with the batch
+        statistics and updates their running statistics."""
         ctx = batch["context"]
         rgb = ctx["rgb"]
         B, V, H, W, _ = rgb.shape
@@ -128,7 +130,7 @@ class CoPoNeRF(nn.Module):
         cd = torch.bfloat16 if bf16 else torch.float32
         # the encoder computes in f32 on the (bf16-rounded, under bf16) input;
         # the UFC casts the latents to its own compute dtype
-        z_feats = self.encoder(rgb.to(cd))
+        z_feats = self.encoder(rgb.to(cd), train=train)
         z_conv = self.conv_map(rgb)
         feat_list, flows, c = self.feature_cost_aggregation(z_feats, V)
 
@@ -153,7 +155,7 @@ class CoPoNeRF(nn.Module):
         _, _, _, mask_bwd = flow_ops.cyclic_consistency_masks(flows[0], flows[1], out_size=up, scale=up / W)
         kps_flow_bwd = resize_nchw(flows[1], (up, up), align_corners=False) * (up / flows[1].shape[-2])
         z0_bf16 = None
-        if self.cfg.fast_sampling:
+        if self.cfg.fast_sampling and not train:
             for zl in z:
                 if zl.shape[1] * zl.shape[2] > 4096:  # the full-resolution table
                     z0_bf16 = zl.to(torch.bfloat16)
@@ -200,11 +202,8 @@ class CoPoNeRF(nn.Module):
         _, _, _, proj, _ = self._query_cams(batch, state.rel_pose, val)
         return proj["overlaps_image"].reshape(B, -1, n_rays).any(dim=1)
 
-    @torch.no_grad()
     def render(self, batch: Dict[str, Any], state: SceneState, val: bool = False,
                train: bool = False) -> Dict[str, Any]:
-        if train:
-            raise NotImplementedError(_TRAIN_MSG)
         cfg = self.cfg
         ctx, query = batch["context"], batch["query"]
         B, V = ctx["rgb"].shape[:2]
@@ -227,7 +226,8 @@ class CoPoNeRF(nn.Module):
         end = scrub((proj["xy_max"] - 0.5) * 2.0)
         ray_dir = lf_coords[..., :3]
 
-        smaj = cfg.fast_sampling
+        # training is ray-major and single-stage
+        smaj = cfg.fast_sampling and not train
         two_stage = smaj and cfg.coarse_samples > 0 and cfg.fine_samples > 0
         S1 = cfg.coarse_samples if two_stage else S
 
@@ -256,8 +256,18 @@ class CoPoNeRF(nn.Module):
             tables = list(state.z)
 
             def sample(z, p, mode):
-                return grid_sample(z, p, mode)
+                if not cfg.fast_sampling:
+                    return grid_sample_tablegrad(z, p, mode)
+                if z.shape[1] * z.shape[2] <= 4096 and cfg.train_onehot_small:
+                    return grid_sample_onehot(z, p, mode)
+                return grid_sample_tablegrad(z.to(torch.bfloat16), p, mode)
 
+        # training: the 256^2 conv_map level is sampled through
+        # convmap_sample_pair, whose backward goes straight to the conv kernel
+        fuse_conv = train and cfg.convmap_direct_grad
+        if fuse_conv:
+            tables = tables[:-1]
+            rgb_n = _normalize_rgb(ctx["rgb"].reshape(B * V, H, W, 3))
         tables_sw = [swap_views(z) for z in tables]
 
         ctx_flat_c2w = context_cam2world.reshape(B * V, 4, 4)
@@ -342,8 +352,15 @@ class CoPoNeRF(nn.Module):
             )
             px_flat = tokf(px_cross, S_)
             samples_s = [sample(z, px_flat, "zeros") for z in tables_sw]
+            if fuse_conv:
+                sp_conv, ss_conv = convmap_sample_pair(
+                    rgb_n, self.conv_map.weight, self.conv_map.bias, pv_flat, px_flat,
+                    bf16, cfg.fast_sampling,
+                )
+                samples_p.append(sp_conv)
+                samples_s.append(ss_conv)
 
-            pt_primary = tokf(scrub(pt_own), S_)
+            pt_primary = tokf(scrub(pt_own).detach(), S_)
             pt_secondary = tokf(scrub(pt_cross), S_)
             pre_p, ka = pre_act(samples_p, pt_primary, fk_a)
             pre_s, kb = pre_act(samples_s, pt_secondary, fk_b)
@@ -353,7 +370,7 @@ class CoPoNeRF(nn.Module):
 
             cam_rays = G.get_ray_directions_cam(pixel_val, ctx_flat_intr, H, W)
             depth = torch.linalg.vector_norm(pt - query_ray_orig, dim=-1)[..., None]
-            depth = torch.nan_to_num(depth, nan=1e6, posinf=1e6, neginf=1e6)
+            depth = torch.nan_to_num(depth, nan=1e6, posinf=1e6, neginf=1e6).detach()
             depth_encode = torch.cat(
                 [torch.tanh(depth), torch.tanh(depth / 10.0), torch.tanh(depth / 100.0), torch.tanh(depth / 1000.0)],
                 dim=-1,

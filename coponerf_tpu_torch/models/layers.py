@@ -82,7 +82,11 @@ class TransformerMlp(nn.Module):
 
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm(epsilon=1e-5)``: statistics and affine in f32,
-    result in ``dtype`` (default: the promotion of the input and f32)."""
+    result in ``dtype`` (default: the promotion of the input and f32).  The
+    variance is flax's E[x^2] - E[x]^2 clipped at 0, not the two-pass
+    variance of ``F.layer_norm``: on tokens with a large common offset the
+    two differ in the low bits, which the pose head's gradient amplifies
+    to percents."""
 
     def __init__(self, dim: int, dtype: Optional[torch.dtype] = None, eps: float = 1e-5):
         super().__init__()
@@ -92,7 +96,10 @@ class LayerNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x):
-        y = F.layer_norm(x.float(), x.shape[-1:], self.weight.float(), self.bias.float(), self.eps)
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight.float()) + self.bias.float()
         return y.to(self.dtype) if self.dtype is not None else y
 
 

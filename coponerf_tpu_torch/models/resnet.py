@@ -1,9 +1,11 @@
-"""ResNet-34 pixel-aligned spatial encoder, eval mode.
+"""ResNet-34 pixel-aligned spatial encoder.
 
 Counterpart of ``coponerf_tpu/models/resnet.py``: the same block layout and
 parameter names (``stem``, ``layer{s}_{b}``, ``cb1``/``cb2``/``downsample``,
-``conv``/``bn``).  BatchNorm runs from the running statistics (inference
-only).  Input and outputs are NHWC; the convolutions run NCHW inside.
+``conv``/``bn``).  BatchNorm follows flax's ``nn.BatchNorm(momentum=0.9)``:
+at inference it normalises with the running statistics; in training with
+the batch statistics, and it updates the running ones.  Input and outputs
+are NHWC; the convolutions run NCHW inside.
 """
 
 from __future__ import annotations
@@ -14,9 +16,18 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+_MOMENTUM = 0.9     # flax nn.BatchNorm(momentum=0.9): weight of the old running value
+
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm: weight/bias plus running mean/var buffers."""
+    """BatchNorm over (N, H, W) of NCHW f32 tensors: weight/bias plus running
+    mean/var buffers.
+
+    ``train=True`` normalises with the batch mean and the BIASED batch
+    variance (flax's E[x^2] - E[x]^2, clipped at 0) and moves the running
+    statistics as ``0.9 * old + 0.1 * batch``, the biased variance included
+    (``F.batch_norm(training=True)`` would store the unbiased one and drift
+    from the JAX package after the first step)."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -26,9 +37,20 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         self.eps = eps
 
-    def forward(self, x):
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
-                            False, 0.0, self.eps)
+    def forward(self, x, train: bool = False):
+        if not train:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                                False, 0.0, self.eps)
+        dims = (0, 2, 3)
+        mean = x.mean(dim=dims)
+        var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = _MOMENTUM
+            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
 
 
 class ConvBN(nn.Module):
@@ -37,8 +59,8 @@ class ConvBN(nn.Module):
         self.conv = nn.Conv2d(in_features, features, kernel, stride, kernel // 2, bias=False)
         self.bn = BatchNorm(features)
 
-    def forward(self, x):
-        return self.bn(self.conv(x))
+    def forward(self, x, train: bool = False):
+        return self.bn(self.conv(x), train)
 
 
 class BasicBlock(nn.Module):
@@ -51,9 +73,9 @@ class BasicBlock(nn.Module):
         else:
             self.downsample = None
 
-    def forward(self, x):
-        out = self.cb2(torch.relu(self.cb1(x)))
-        identity = x if self.downsample is None else self.downsample(x)
+    def forward(self, x, train: bool = False):
+        out = self.cb2(torch.relu(self.cb1(x, train)), train)
+        identity = x if self.downsample is None else self.downsample(x, train)
         return torch.relu(out + identity)
 
 
@@ -76,15 +98,16 @@ class ResNet34Encoder(nn.Module):
             self.names.append(blocks)
         self.num_keep = num_keep
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, train: bool = False):
         """x: (B, H, W, 3) ImageNet-normalized -> NHWC maps, deepest first.
-        Computes in f32 (flax's promotion of a bf16 input with f32 params)."""
+        Computes in f32 (flax's promotion of a bf16 input with f32 params);
+        ``train`` selects the batch statistics in every BatchNorm."""
         x = x.float().permute(0, 3, 1, 2)
-        x = torch.relu(self.stem(x))
+        x = torch.relu(self.stem(x, train))
         latents = [x]
         for blocks in self.names:
             for name in blocks:
-                x = getattr(self, name)(x)
+                x = getattr(self, name)(x, train)
             latents.append(x)
         latents = latents[::-1][: self.num_keep]
         return [z.permute(0, 2, 3, 1) for z in latents]

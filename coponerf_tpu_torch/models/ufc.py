@@ -1,11 +1,14 @@
-"""UFC feature & cost aggregation (loop layout, inference only).
+"""UFC feature & cost aggregation (loop layout).
 
-Counterpart of ``coponerf_tpu/models/ufc.py`` with ``scan_layers=False`` and
-no remat: three coarse-to-fine stages of UFCLayers over flattened
+Counterpart of ``coponerf_tpu/models/ufc.py`` with ``scan_layers=False``:
+three coarse-to-fine stages of UFCLayers over flattened
 correlation volumes (B, L, Hq*Wq, Hs*Ws), token stacks (2B, N, C) =
 [all src; all trg], and the default unfused soft-argmax flow extraction.
 ``dtype`` is the volume/token compute dtype (None = f32); norm statistics,
 the dual softmax and the flow correlations stay f32, as in the JAX package.
+With ``remat`` each UFC layer runs under ``torch.utils.checkpoint`` while
+gradients are on (the JAX package's ``nn.remat``): its activations are
+recomputed in the backward instead of kept; the numbers are unchanged.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from coponerf_tpu_torch.models.conv4d import Encoder4D, encoder4d_args
 from coponerf_tpu_torch.models.layers import ConvNHWC, Dense, LayerNorm
@@ -194,9 +198,10 @@ class UFC(nn.Module):
                  nhead: int = 8, feat_dim: Sequence[int] = (256, 256, 256),
                  layer_nums: Sequence[int] = (2, 2, 1), f2c_kernel: Sequence[int] = (3, 3, 5),
                  f2c_stride: Sequence[int] = (1, 2, 4), f2c_pad: Sequence[int] = (1, 1, 2),
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, remat: bool = False):
         super().__init__()
         self.stage_hw, self.nhead, self.feat_dim, self.layer_nums = list(stage_hw), nhead, feat_dim, layer_nums
+        self.remat = remat
         for s in range(3):
             for i in range(layer_nums[s]):
                 self.add_module(f"layers_{s}_{i}", UFCLayer(
@@ -239,7 +244,11 @@ class UFC(nn.Module):
             if s > 0:
                 ft2 = interp_tokens(ft2_prev, (hw, hw)) + ft2
             for i in range(self.layer_nums[s]):
-                corr, ft2 = getattr(self, f"layers_{s}_{i}")(corr, ft2)
+                layer = getattr(self, f"layers_{s}_{i}")
+                if self.remat and torch.is_grad_enabled():
+                    corr, ft2 = checkpoint(layer, corr, ft2, use_reentrant=False)
+                else:
+                    corr, ft2 = layer(corr, ft2)
             corr_res = corr
             ft2_prev = ft2
             src, trg = ft2[:B], ft2[B:]

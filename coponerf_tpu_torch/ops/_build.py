@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into ONE
-shared library with a plain C interface, at first use, into
-``coponerf_tpu_torch/_build/`` (git-ignored).  The library name carries a
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``,
+all started together, and the objects are linked into ONE shared library
+with a plain C interface, at first use, into ``coponerf_tpu_torch/_build/``
+(git-ignored).  The library name carries a
 hash of the sources and flags, so an edited source is never served by a
 stale build.  Nothing here runs at import time, and nothing falls back: a
 missing ``nvcc`` or a failed compile raises.
@@ -28,7 +29,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
 ]
 
 P = ctypes.c_void_p
@@ -39,10 +40,14 @@ L = ctypes.c_longlong
 SIGNATURES = {
     # table (bf16), grid, out (bf16), B, H, W, C, P, zeros_mode, stream
     "k1_bilinear_sample": [P, P, P, I, I, I, I, L, I, P],
+    # table (bf16), idx, w, out, B, HW, C, P, out_f32, stream
+    "k1_corner_sample": [P, P, P, P, I, I, I, L, I, P],
     # p0, p1, p2, pc, pt, W (K, N), bias, fk (N, NK), out, k, rows, K0, Kc, N, NK, dtype, stream
     "k2_split_dense_relu": [P, P, P, P, P, P, P, P, P, P, L, I, I, I, I, I, P],
     # pre, w, out, R, V, S, N, C, dtype, stream
     "k3_weighted_sum": [P, P, P, I, I, I, I, I, I, P],
+    # g, idx, w, out (f32, zeroed), B, P, HW, C, g dtype, stream
+    "k4_transpose_sample": [P, P, P, P, I, L, I, I, I, P],
 }
 
 _lock = threading.Lock()
@@ -85,12 +90,29 @@ def build() -> str:
             if os.path.exists(out):
                 return out
             t0 = time.perf_counter()
+            nvcc = _nvcc()
             tmp = out + f".tmp{os.getpid()}"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   *[s for s in _sources() if s.endswith(".cu")]]
-            res = subprocess.run(cmd, capture_output=True, text=True)
+            objs, procs = [], []
+            for src in (s for s in _sources() if s.endswith(".cu")):
+                obj = f"{tmp}.{os.path.basename(src)}.o"
+                objs.append(obj)
+                procs.append((src, subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                )))
+            failed = []
+            for src, proc in procs:
+                log, _ = proc.communicate()
+                if proc.returncode != 0:
+                    failed.append(f"{os.path.basename(src)} ({proc.returncode}):\n{log}")
+            if failed:
+                raise RuntimeError("nvcc failed: " + "\n".join(failed))
+            res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                                 capture_output=True, text=True)
+            for obj in objs:
+                os.remove(obj)
             if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+                raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
             os.replace(tmp, out)
             build_seconds = time.perf_counter() - t0
             return out

@@ -32,21 +32,27 @@ def _scrub(v: torch.Tensor) -> torch.Tensor:
     return torch.clamp(v, -_COORD_CLIP, _COORD_CLIP)
 
 
-def pixel_coords(grid: torch.Tensor, H: int, W: int, padding_mode: str):
-    """[-1, 1] grid (B, P, 2) -> f32 pixel (x, y) as the samplers floor them:
-    border clamps into [0, size-1-eps]; zeros scrubs non-finite values and
-    shifts by the 2-texel ring.  Returns (x, y, shift)."""
+def pixel_xy(grid: torch.Tensor, H: int, W: int, padding_mode: str):
+    """[-1, 1] grid (B, ..., 2) -> unshifted f32 pixel x, y (B, P): border
+    clamps into [0, size-1-eps], zeros scrubs non-finite values to the far
+    sentinel (the JAX package's ``_pixel_coords``)."""
     if padding_mode not in ("zeros", "border"):
         raise ValueError(f"unsupported padding_mode: {padding_mode}")
-    x = _unnormalize(grid[..., 0].float(), W)
-    y = _unnormalize(grid[..., 1].float(), H)
+    g = grid.reshape(grid.shape[0], -1, 2)
+    x = _unnormalize(g[..., 0].float(), W)
+    y = _unnormalize(g[..., 1].float(), H)
     if padding_mode == "border":
-        return (
-            torch.clamp(x, 0.0, W - 1.0 - _EDGE_EPS),
-            torch.clamp(y, 0.0, H - 1.0 - _EDGE_EPS),
-            0,
-        )
-    return _scrub(x) + 2.0, _scrub(y) + 2.0, 2
+        return torch.clamp(x, 0.0, W - 1.0 - _EDGE_EPS), torch.clamp(y, 0.0, H - 1.0 - _EDGE_EPS)
+    return _scrub(x), _scrub(y)
+
+
+def pixel_coords(grid: torch.Tensor, H: int, W: int, padding_mode: str):
+    """``pixel_xy`` as the gather samplers floor it: zeros padding shifts by
+    the 2-texel ring.  Returns (x, y, shift)."""
+    x, y = pixel_xy(grid, H, W, padding_mode)
+    if padding_mode == "border":
+        return x, y, 0
+    return x + 2.0, y + 2.0, 2
 
 
 def grid_sample(

@@ -13,6 +13,12 @@ dtype; ``bias`` stays f32.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
+
+Under autograd the forward is the same K2 launch and the backward follows
+``split_matmul.py:131-158``: f32 products, the key cotangent routed into
+``out``'s through ``fk``, and the relu mask from the saved ``out``.  These
+products stay ``torch.matmul``/``einsum``, as the JAX package computes them
+outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -48,7 +54,36 @@ def split_dense_relu_plain(parts, kernel, bias, fk):
 
 def split_dense_relu(parts, kernel: torch.Tensor, bias: torch.Tensor, fk: torch.Tensor):
     """parts: (p0, p1, p2, pc, pt), each (R, T, K_i).  Returns (out (R, T, N),
-    k (R, T, NK)) in the part dtype."""
+    k (R, T, NK)) in the part dtype, differentiable in every argument."""
+    return _SplitDenseRelu.apply(kernel, bias, fk, *parts)
+
+
+class _SplitDenseRelu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, kernel, bias, fk, *parts):
+        out, k = _split_dense_relu_fwd(parts, kernel, bias, fk)
+        ctx.save_for_backward(kernel, bias, fk, out, *parts)
+        return out, k
+
+    @staticmethod
+    def backward(ctx, g_out, g_k):
+        kernel, bias, fk, out, *parts = ctx.saved_tensors
+        out_f, g_k = out.float(), g_k.float()
+        g = g_out.float() + g_k @ fk.float().t()
+        dfk = torch.einsum("btn,btm->nm", out_f, g_k).to(fk.dtype)
+        g = g * (out_f > 0)
+        dparts, off = [], 0
+        for p in parts:
+            w = kernel[off: off + p.shape[-1]].float()
+            dparts.append((g @ w.t()).to(p.dtype))
+            off += p.shape[-1]
+        x = torch.cat([p.float() for p in parts], dim=-1)
+        dk = torch.einsum("btk,btn->kn", x, g).to(kernel.dtype)
+        db = g.sum(dim=(0, 1)).to(bias.dtype)
+        return (dk, db, dfk, *dparts)
+
+
+def _split_dense_relu_fwd(parts, kernel, bias, fk):
     if len(parts) != 5 or parts[4].shape[-1] != 3:
         raise ValueError("expected five parts, the last 3 wide")
     p0, p1, p2, pc, pt = parts

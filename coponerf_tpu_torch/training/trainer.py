@@ -1,0 +1,154 @@
+"""Training: one Adam step of the whole model per batch, and the loop.
+
+Counterpart of ``coponerf_tpu/training/trainer.py:35-275``:
+  - Adam with optax's defaults (b1 0.9, b2 0.999, eps 1e-8), one group;
+  - global-norm clipping in optax's form: ``g / norm * max_norm`` when
+    ``norm >= max_norm`` (not ``clip_grad_norm_``'s ``norm + 1e-6``);
+  - a per-epoch staircase decay ``lr * 0.95 ** (updates // steps_per_epoch)``
+    counted in applied updates;
+  - a step whose gradients hold any NaN/Inf applies nothing:
+    ``optimizer.step()`` is not called, so neither Adam's state nor the
+    schedule moves (optax ``apply_if_finite`` semantics).  The BatchNorm
+    running statistics are updated by the forward all the same, as in the
+    JAX step and the reference;
+  - checkpoints at the JAX loop's cadences and a JSONL metric log.
+
+Single device; multi-GPU training is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+from typing import Any, Dict, Iterable, Optional
+
+import torch
+
+from coponerf_tpu_torch.config import Config
+from coponerf_tpu_torch.models import CoPoNeRF, batch_to_torch
+from coponerf_tpu_torch.training import checkpoint as ckpt_lib
+from coponerf_tpu_torch.training.losses import lf_loss
+from coponerf_tpu_torch.utils.init import init_weights
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: CoPoNeRF
+    optimizer: torch.optim.Optimizer
+    step: int = 0               # train steps taken, skipped ones included
+    updates: int = 0            # optimizer updates applied (Adam's count)
+    notfinite_count: int = 0    # consecutive skipped steps
+    total_notfinite: int = 0    # all skipped steps
+
+
+def make_optimizer(model: torch.nn.Module, cfg: Config) -> torch.optim.Adam:
+    """One Adam group over every parameter (the reference's encoder/decoder
+    split is inert).  The learning rate is set before each update."""
+    return torch.optim.Adam(model.parameters(), lr=cfg.train.lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def create_train_state(cfg: Config, image_size: int, device, model: Optional[CoPoNeRF] = None) -> TrainState:
+    """A fresh state: ``model`` or a seeded one (``cfg.train.seed``) on ``device``."""
+    if model is None:
+        model = init_weights(CoPoNeRF(cfg.model, image_size=image_size), seed=cfg.train.seed)
+    model = model.to(device)
+    return TrainState(model=model, optimizer=make_optimizer(model, cfg))
+
+
+def learning_rate(cfg: Config, updates: int) -> float:
+    """optax ``exponential_decay(staircase=True)`` over applied updates."""
+    steps_per_epoch = max(cfg.train.steps_per_epoch or cfg.train.steps_til_summary, 1)
+    return cfg.train.lr * cfg.train.lr_decay ** (updates // steps_per_epoch)
+
+
+def attention_entropy(at_wt: torch.Tensor) -> torch.Tensor:
+    ent = -(at_wt * torch.log(at_wt + 1e-5)).sum(dim=-1)
+    return torch.nan_to_num(ent, nan=0.0).mean()
+
+
+def train_step(state: TrainState, batch: Dict[str, Any], cfg: Config) -> Dict[str, torch.Tensor]:
+    """One step on a batch of tensors on the model's device.  Returns the
+    metrics as detached 0-d tensors: each loss, ``total_train_loss``,
+    ``total_at_entropy`` and ``grad_norm`` (before clipping)."""
+    model, opt = state.model, state.optimizer
+    out = model(batch, val=False, train=True)
+    losses, _ = lf_loss(cfg.loss, batch, out, batch["query"])
+    total = sum(losses.values())
+    opt.zero_grad(set_to_none=True)
+    total.backward()
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+    finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
+    if finite:
+        max_norm = cfg.train.clip_grad_norm
+        if norm.item() >= max_norm:
+            for g in grads:
+                g.div_(norm).mul_(max_norm)
+        for group in opt.param_groups:
+            group["lr"] = learning_rate(cfg, state.updates)
+        opt.step()
+        state.updates += 1
+        state.notfinite_count = 0
+    else:
+        state.notfinite_count += 1
+        state.total_notfinite += 1
+    opt.zero_grad(set_to_none=True)
+    state.step += 1
+    metrics = {k: v.detach() for k, v in losses.items()}
+    metrics["total_train_loss"] = total.detach()
+    metrics["total_at_entropy"] = attention_entropy(out["at_wt"].detach())
+    metrics["grad_norm"] = norm.detach()
+    return metrics
+
+
+class MetricLogger:
+    """Appends one JSON object per logged step to ``<logdir>/metrics.jsonl``."""
+
+    def __init__(self, logdir: str):
+        os.makedirs(logdir, exist_ok=True)
+        self._f = open(os.path.join(logdir, "metrics.jsonl"), "a")
+
+    def log(self, step: int, metrics: Dict[str, Any]) -> None:
+        clean = {k: float(v) for k, v in metrics.items()}
+        self._f.write(json.dumps({"step": step, **clean}) + "\n")
+        self._f.flush()
+
+    def close(self) -> None:
+        self._f.close()
+
+
+def train(cfg: Config, batches: Iterable, num_steps: int, state: TrainState, device,
+          log_every: int = 10) -> TrainState:
+    """Run ``num_steps`` steps over ``batches`` (numpy batches in the
+    ``data.synthetic.make_batch`` schema, cycled if exhausted), logging to
+    ``<logging_root>/<experiment_name>/summaries`` and checkpointing to
+    ``.../checkpoints`` at the JAX loop's cadences; returns the state."""
+    logdir = os.path.join(cfg.logging_root, cfg.experiment_name)
+    logger = MetricLogger(os.path.join(logdir, "summaries"))
+    ckpt_dir = os.path.join(logdir, "checkpoints")
+    steps_per_epoch = cfg.train.steps_per_epoch or cfg.train.steps_til_summary
+    it = iter(batches)
+    t0 = time.time()
+    try:
+        for step in range(num_steps):
+            try:
+                batch_np = next(it)
+            except StopIteration:
+                it = iter(batches)
+                batch_np = next(it)
+            metrics = train_step(state, batch_to_torch(batch_np, device), cfg)
+            if step % log_every == 0:
+                metrics["steps_per_sec"] = (step + 1) / (time.time() - t0)
+                logger.log(step, metrics)
+            if cfg.train.iters_til_ckpt and step and step % cfg.train.iters_til_ckpt == 0:
+                ckpt_lib.save(ckpt_dir, state, step)
+            if cfg.train.epochs_til_ckpt and step and step % (steps_per_epoch * cfg.train.epochs_til_ckpt) == 0:
+                ckpt_lib.save(ckpt_dir, state, step, name=f"model_epoch_{step // steps_per_epoch:04d}")
+            if step and step % cfg.train.steps_til_summary == 0:
+                ckpt_lib.save(ckpt_dir, state, step, name="model_current")
+        ckpt_lib.save(ckpt_dir, state, num_steps, name="model_final")
+    finally:
+        logger.close()
+    return state

@@ -10,7 +10,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from coponerf_tpu.config import ModelConfig
+from coponerf_tpu.config import ModelConfig as JaxModelConfig
 from coponerf_tpu.data.synthetic import make_batch
 from coponerf_tpu.models import CoPoNeRF as JaxCoPoNeRF
 from coponerf_tpu.models.conv4d import Conv4d as JaxConv4d
@@ -19,6 +19,7 @@ from coponerf_tpu.models.lightfield import ResnetFC as JaxResnetFC
 from coponerf_tpu.models.resnet import ResNet34Encoder as JaxResNet
 from coponerf_tpu.models.ufc import UFCLayer as JaxUFCLayer
 from coponerf_tpu.utils.fast_init import fast_init
+from coponerf_tpu_torch.config import ModelConfig
 from coponerf_tpu_torch.models import CoPoNeRF
 from coponerf_tpu_torch.models.conv4d import Conv4d
 from coponerf_tpu_torch.models.cross_block import CrossBlock
@@ -47,13 +48,14 @@ def _port(module: torch.nn.Module, variables) -> torch.nn.Module:
 def test_convert_round_trip_and_seeded_init():
     """fast_init -> convert -> strict load consumes every leaf, and the
     port's own seeded init reproduces the same tensors without JAX."""
-    cfg = ModelConfig(mask_upsample=32, npoints=4, ufc_layer_nums=(1, 1, 1))
+    cfg_kw = dict(mask_upsample=32, npoints=4, ufc_layer_nums=(1, 1, 1))
     batch_np, _ = make_batch(batch_size=1, image_size=32, n_rays=8, seed=0)
-    variables = fast_init(JaxCoPoNeRF(cfg), jax.tree.map(jnp.asarray, batch_np), val=False, train=False)
+    variables = fast_init(JaxCoPoNeRF(JaxModelConfig(**cfg_kw)), jax.tree.map(jnp.asarray, batch_np),
+                          val=False, train=False)
     sd = convert(jax.tree.map(np.asarray, variables))
     n_leaves = len(jax.tree.leaves(variables))
     assert len(sd) == n_leaves
-    port = CoPoNeRF(cfg, image_size=32)
+    port = CoPoNeRF(ModelConfig(**cfg_kw), image_size=32)
     result = port.load_state_dict(sd, strict=True)
     assert not result.missing_keys and not result.unexpected_keys
     own = init_state_dict(port, seed=0)

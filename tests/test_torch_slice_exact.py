@@ -19,10 +19,11 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from coponerf_tpu.config import ModelConfig
+from coponerf_tpu.config import ModelConfig as JaxModelConfig
 from coponerf_tpu.data.synthetic import make_batch
 from coponerf_tpu.models import CoPoNeRF as JaxCoPoNeRF
 from coponerf_tpu.utils.fast_init import fast_init
+from coponerf_tpu_torch.config import ModelConfig
 from coponerf_tpu_torch.models import CoPoNeRF, batch_to_torch
 from coponerf_tpu_torch.utils.convert import convert
 
@@ -30,7 +31,8 @@ torch.set_num_threads(2)
 
 IMG = 32
 N_RAYS = 24
-CFG = ModelConfig(mask_upsample=IMG, npoints=8, ufc_layer_nums=(1, 1, 1))
+CFG_KW = dict(mask_upsample=IMG, npoints=8, ufc_layer_nums=(1, 1, 1))
+CFG = ModelConfig(**CFG_KW)
 TOL = dict(atol=1e-4, rtol=1e-4)
 RENDER_KEYS = ("rgb", "at_wt", "depth_ray", "T_to_C1_pts", "T_to_C2_pts",
                "matchability_cycle_mask", "mask_c2")
@@ -51,7 +53,7 @@ def _projective(xy):
 def slice_pair():
     batch_np, _ = make_batch(batch_size=1, image_size=IMG, n_rays=N_RAYS, seed=0)
     batch = jax.tree.map(jnp.asarray, batch_np)
-    jm = JaxCoPoNeRF(CFG)
+    jm = JaxCoPoNeRF(JaxModelConfig(**CFG_KW))
     variables = fast_init(jm, batch, val=False, train=False)
     state = jm.apply(variables, batch, train=False, method="encode")
     ref = {"state": state}
@@ -60,10 +62,11 @@ def slice_pair():
     port = CoPoNeRF(CFG, image_size=IMG).eval()
     port.load_state_dict(convert(jax.tree.map(np.asarray, variables)), strict=True)
     tb = batch_to_torch(batch_np, "cpu")
-    st = port.encode(tb)
-    got = {"state": st}
-    for val in (False, True):
-        got[val] = port.render(tb, st, val=val)
+    with torch.no_grad():
+        st = port.encode(tb)
+        got = {"state": st}
+        for val in (False, True):
+            got[val] = port.render(tb, st, val=val)
     return ref, got, port, tb
 
 
@@ -98,8 +101,20 @@ def test_valid_ray_mask_matches_render(slice_pair):
 
 
 def test_train_mode_is_not_ported(slice_pair):
+    """Train mode is ported now: in the exact config the train-mode render
+    (ray-major, the table-gradient samplers and ``convmap_sample_pair``)
+    computes the same forward as the inference render on the same
+    SceneState, and carries gradients to the weights; a train-mode encode
+    normalises with batch statistics and moves the running ones."""
     _, got, port, tb = slice_pair
-    with pytest.raises(NotImplementedError):
+    out = port.render(tb, got["state"], val=False, train=True)
+    for k in RENDER_KEYS:
+        np.testing.assert_allclose(_np(out[k]), _np(got[False][k]), atol=1e-5, rtol=1e-5, err_msg=k)
+    out["rgb"].sum().backward()
+    assert port.conv_map.weight.grad is not None and port.query_encode_latent.Dense_0.weight.grad is not None
+    port.zero_grad(set_to_none=True)
+    saved = {k: v.clone() for k, v in port.state_dict().items()}
+    with torch.no_grad():
         port.encode(tb, train=True)
-    with pytest.raises(NotImplementedError):
-        port.render(tb, got["state"], train=True)
+    assert not torch.equal(port.encoder.stem.bn.running_mean, saved["encoder.stem.bn.running_mean"])
+    port.load_state_dict(saved)

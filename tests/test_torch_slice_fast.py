@@ -18,10 +18,11 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from coponerf_tpu.config import ModelConfig
+from coponerf_tpu.config import ModelConfig as JaxModelConfig
 from coponerf_tpu.data.synthetic import make_batch
 from coponerf_tpu.models import CoPoNeRF as JaxCoPoNeRF
 from coponerf_tpu.utils.fast_init import fast_init
+from coponerf_tpu_torch.config import ModelConfig
 from coponerf_tpu_torch.models import CoPoNeRF, SceneState, batch_to_torch
 from coponerf_tpu_torch.utils.convert import convert
 
@@ -29,8 +30,9 @@ torch.set_num_threads(2)
 
 IMG = 32
 N_RAYS = 24
-CFG = ModelConfig(mask_upsample=IMG, npoints=8, ufc_layer_nums=(1, 1, 1), fast_sampling=True,
-                  compute_dtype="bfloat16", coarse_samples=6, fine_samples=4)
+CFG_KW = dict(mask_upsample=IMG, npoints=8, ufc_layer_nums=(1, 1, 1), fast_sampling=True,
+              compute_dtype="bfloat16", coarse_samples=6, fine_samples=4)
+CFG = ModelConfig(**CFG_KW)
 SE = 6 + 4
 
 
@@ -63,19 +65,20 @@ def _mean_rel(a, b):
 def fast_pair():
     batch_np, _ = make_batch(batch_size=1, image_size=IMG, n_rays=N_RAYS, seed=0)
     batch = jax.tree.map(jnp.asarray, batch_np)
-    jm = JaxCoPoNeRF(CFG)
+    jm = JaxCoPoNeRF(JaxModelConfig(**CFG_KW))
     variables = fast_init(jm, batch, val=False, train=False)
     jstate = jm.apply(variables, batch, train=False, method="encode")
     ref = {v: jm.apply(variables, batch, jstate, val=v, method="render") for v in (False, True)}
     port = CoPoNeRF(CFG, image_size=IMG).eval()
     port.load_state_dict(convert(jax.tree.map(np.asarray, variables)), strict=True)
     tb = batch_to_torch(batch_np, "cpu")
-    state = port.encode(tb)
-    got = {
-        "own_nonval": port.render(tb, state, val=False),
-        "own_val": port.render(tb, state, val=True),
-        "jaxstate_val": port.render(tb, _to_port_state(jstate), val=True),
-    }
+    with torch.no_grad():
+        state = port.encode(tb)
+        got = {
+            "own_nonval": port.render(tb, state, val=False),
+            "own_val": port.render(tb, state, val=True),
+            "jaxstate_val": port.render(tb, _to_port_state(jstate), val=True),
+        }
     return jstate, ref, state, got
 
 
