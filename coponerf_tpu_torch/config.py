@@ -3,8 +3,8 @@
 The fields of ``coponerf_tpu/config.py`` that the port reads, copied with
 the same names and defaults, so the same keyword arguments build the same
 configuration in both packages (``tests/test_torch_config_data.py`` holds
-them equal).  ``fused_argmax`` is kept for the next slice; the model
-rejects it until its kernel K5 is ported.
+them equal).  ``fused_argmax`` (None = OFF, as in the JAX package) makes
+the UFC extract both flows through the fused soft-argmax K5.
 """
 
 from __future__ import annotations

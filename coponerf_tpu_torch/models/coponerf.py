@@ -16,6 +16,9 @@ training: K1 forward and K4 backward (``grid_sample_onehot``) on the
 <=64^2 levels, the 256^2 conv level through ``convmap_sample_pair``, K2
 forward with a plain-product backward.  The exact config samples with the
 f32 gather (``grid_sample_tablegrad``, K4 backward) and runs W1 through K2.
+With ``fused_argmax`` the UFC extracts both flows through K5
+(``ops.soft_argmax``: its statistics kernel forward, its backward kernel in
+training).
 """
 
 from __future__ import annotations
@@ -83,8 +86,6 @@ class CoPoNeRF(nn.Module):
 
     def __init__(self, cfg: ModelConfig = ModelConfig(), image_size: int = 256):
         super().__init__()
-        if cfg.fused_argmax:
-            raise NotImplementedError("fused_argmax needs the fused soft-argmax kernel (K5), not ported yet")
         self.cfg = c = cfg
         bf16 = c.compute_dtype == "bfloat16"
         ufc_dt = torch.bfloat16 if bf16 else None
@@ -93,7 +94,7 @@ class CoPoNeRF(nn.Module):
         stage_hw = [image_size // 16, image_size // 8, image_size // 4]
         self.feature_cost_aggregation = UFC(
             stage_hw, nhead=c.corr_heads, layer_nums=tuple(c.ufc_layer_nums), dtype=ufc_dt,
-            remat=c.remat_ufc,
+            remat=c.remat_ufc, fused_argmax=bool(c.fused_argmax),
         )
         self.cross_attention = CrossBlock()
         self.pose_regressor = MLPSeq(2 * (256 + 6) * 256, (512, 256, 256), act_last=True)

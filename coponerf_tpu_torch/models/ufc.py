@@ -3,7 +3,8 @@
 Counterpart of ``coponerf_tpu/models/ufc.py`` with ``scan_layers=False``:
 three coarse-to-fine stages of UFCLayers over flattened
 correlation volumes (B, L, Hq*Wq, Hs*Ws), token stacks (2B, N, C) =
-[all src; all trg], and the default unfused soft-argmax flow extraction.
+[all src; all trg], and the soft-argmax flow extraction: unfused by
+default, through K5 (``ops/soft_argmax.py``) with ``fused_argmax``.
 ``dtype`` is the volume/token compute dtype (None = f32); norm statistics,
 the dual softmax and the flow correlations stay f32, as in the JAX package.
 With ``remat`` each UFC layer runs under ``torch.utils.checkpoint`` while
@@ -28,6 +29,7 @@ from coponerf_tpu_torch.ops.correlation import (
     unnormalise_and_convert_mapping_to_flow,
 )
 from coponerf_tpu_torch.ops.resize import resize_bilinear
+from coponerf_tpu_torch.ops.soft_argmax import soft_argmax_both
 
 
 def linear_attention(q, k, v, eps: float = 1e-6):
@@ -198,10 +200,10 @@ class UFC(nn.Module):
                  nhead: int = 8, feat_dim: Sequence[int] = (256, 256, 256),
                  layer_nums: Sequence[int] = (2, 2, 1), f2c_kernel: Sequence[int] = (3, 3, 5),
                  f2c_stride: Sequence[int] = (1, 2, 4), f2c_pad: Sequence[int] = (1, 1, 2),
-                 dtype: Optional[torch.dtype] = None, remat: bool = False):
+                 dtype: Optional[torch.dtype] = None, remat: bool = False, fused_argmax: bool = False):
         super().__init__()
         self.stage_hw, self.nhead, self.feat_dim, self.layer_nums = list(stage_hw), nhead, feat_dim, layer_nums
-        self.remat = remat
+        self.remat, self.fused_argmax = remat, fused_argmax
         for s in range(3):
             for i in range(layer_nums[s]):
                 self.add_module(f"layers_{s}_{i}", UFCLayer(
@@ -258,8 +260,11 @@ class UFC(nn.Module):
         fine = self.stage_hw[-1]
         ups = [interpolate4d_flat(x, (hw, hw), (hw, hw), (fine, fine), (fine, fine)) for x, hw in correlations]
         c = sum(ups) / len(ups)
-        mapping_fwd = soft_argmax_flat(c[:, 0], axis=2)
-        mapping_bwd = soft_argmax_flat(c[:, 0], axis=1)
+        if self.fused_argmax:
+            mapping_fwd, mapping_bwd = soft_argmax_both(c[:, 0])
+        else:
+            mapping_fwd = soft_argmax_flat(c[:, 0], axis=2)
+            mapping_bwd = soft_argmax_flat(c[:, 0], axis=1)
         flow = unnormalise_and_convert_mapping_to_flow(mapping_fwd)
         flow_flip = unnormalise_and_convert_mapping_to_flow(mapping_bwd)
         return feat_list, (flow, flow_flip, mapping_fwd, mapping_bwd), c

@@ -35,6 +35,7 @@ NVCC_FLAGS = [
 P = ctypes.c_void_p
 I = ctypes.c_int
 L = ctypes.c_longlong
+D = ctypes.c_double
 
 # exported symbol -> argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
@@ -48,6 +49,10 @@ SIGNATURES = {
     "k3_weighted_sum": [P, P, P, I, I, I, I, I, I, P],
     # g, idx, w, out (f32, zeroed), B, P, HW, C, g dtype, stream
     "k4_transpose_sample": [P, P, P, P, I, L, I, I, I, P],
+    # c, xs, ys, xq, yq, rowp, colp (scratch), row, col, B, Q, S, nSB, nQB, beta, stream
+    "k5_soft_argmax_stats": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, D, P],
+    # c, rowf, colf, dr, dcol, xs, ys, xq, yq, out, B, Q, S, beta, stream
+    "k5_soft_argmax_bwd": [P, P, P, P, P, P, P, P, P, P, I, I, I, D, P],
 }
 
 _lock = threading.Lock()

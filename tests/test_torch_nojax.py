@@ -1,8 +1,9 @@
-"""The port runs without JAX: an inference render and a train step load no
-module of ``jax``, ``flax`` or the JAX package ``coponerf_tpu``.  On CPU
-tensors its kernel wrappers take the plain versions without counting a
-launch."""
+"""The port runs without JAX: an inference render and a train step, the
+latter also with ``fused_argmax=True``, load no module of ``jax``, ``flax``
+or the JAX package ``coponerf_tpu``.  On CPU tensors its kernel wrappers
+take the plain versions without counting a launch."""
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -13,6 +14,7 @@ from coponerf_tpu_torch.config import ModelConfig
 from coponerf_tpu_torch.data.synthetic import make_batch
 from coponerf_tpu_torch.models import CoPoNeRF, batch_to_torch
 from coponerf_tpu_torch.ops.bilinear_sample import bilinear_sample, corner_sample, onehot_transpose_matmul
+from coponerf_tpu_torch.ops.soft_argmax import soft_argmax_bwd, soft_argmax_stats
 from coponerf_tpu_torch.ops.split_matmul import split_dense_relu
 from coponerf_tpu_torch.ops.weighted_sum import weighted_sum_smaj
 from coponerf_tpu_torch.utils.init import init_weights
@@ -22,6 +24,7 @@ torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _CHILD = r"""
+import dataclasses
 import sys
 import torch
 torch.set_num_threads(2)
@@ -43,6 +46,10 @@ tcfg = Config(model=cfg, loss=LossConfig(pose=True, cycle=True, ssim=True), trai
 state = trainer.create_train_state(tcfg, 32, "cpu", model=model)
 metrics = trainer.train_step(state, batch_to_torch(make_batch(batch_size=2, image_size=32, n_rays=8, seed=1)[0], "cpu"), tcfg)
 assert state.updates == 1 and all(torch.isfinite(v) for v in metrics.values())
+fcfg = dataclasses.replace(tcfg, model=dataclasses.replace(cfg, fused_argmax=True))
+fstate = trainer.create_train_state(fcfg, 32, "cpu", model=init_weights(CoPoNeRF(fcfg.model, image_size=32), seed=0))
+metrics = trainer.train_step(fstate, batch_to_torch(make_batch(batch_size=2, image_size=32, n_rays=8, seed=1)[0], "cpu"), fcfg)
+assert fstate.updates == 1 and all(torch.isfinite(v) for v in metrics.values())
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
 print("JAX_MODULES", bad)
 ref = sorted(m for m in sys.modules if m.split(".")[0] == "coponerf_tpu")
@@ -61,15 +68,17 @@ def test_port_imports_and_runs_without_jax():
 
 
 def test_cpu_tensors_take_the_plain_versions():
-    """Inference and a train-mode forward and backward on CPU tensors leave
-    every kernel's launch count at zero (K1 and its corner-id entry, K2, K3,
-    K4)."""
+    """Inference and a train-mode forward and backward on CPU tensors, the
+    latter also with ``fused_argmax=True``, leave every kernel's launch
+    count at zero (K1 and its corner-id entry, K2, K3, K4, K5's forward and
+    backward)."""
     cfg = ModelConfig(mask_upsample=32, npoints=4, ufc_layer_nums=(1, 1, 1), fast_sampling=True,
                       compute_dtype="bfloat16", coarse_samples=4, fine_samples=2)
     batch, _ = make_batch(batch_size=1, image_size=32, n_rays=8, seed=1)
     model = init_weights(CoPoNeRF(cfg, image_size=32).eval(), seed=1)
     tb = batch_to_torch(batch, "cpu")
-    counters = (bilinear_sample, corner_sample, split_dense_relu, weighted_sum_smaj, onehot_transpose_matmul)
+    counters = (bilinear_sample, corner_sample, split_dense_relu, weighted_sum_smaj, onehot_transpose_matmul,
+                soft_argmax_stats, soft_argmax_bwd)
     before = tuple(c.launches for c in counters)
     with torch.no_grad():
         out = model.render(tb, model.encode(tb), val=True)
@@ -77,5 +86,9 @@ def test_cpu_tensors_take_the_plain_versions():
     out = model(tb, val=False, train=True)
     out["rgb"].sum().backward()
     assert model.feature_cost_aggregation.proj_feat_0.Dense_0.weight.grad is not None
+    fused = init_weights(CoPoNeRF(dataclasses.replace(cfg, fused_argmax=True), image_size=32), seed=1)
+    out = fused(tb, val=False, train=True)
+    (out["rgb"].sum() + out["flow"][0].square().sum()).backward()
+    assert fused.feature_cost_aggregation.proj_feat_0.Dense_0.weight.grad is not None
     after = tuple(c.launches for c in counters)
-    assert before == after == (0, 0, 0, 0, 0)
+    assert before == after == (0,) * 7

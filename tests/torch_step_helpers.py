@@ -1,7 +1,8 @@
 """Shared by the port's whole-train-step tests: one JAX ``make_train_step``
 and one port ``train_step`` from the same weights and batch, the pose
-term's gradient through the encode on both sides, and the leaf-by-leaf
-views of their results."""
+term's gradient through the encode on both sides, the leaf-by-leaf views
+of their results, and the exact config's checks of one step (bounds in
+``tests/test_torch_train_exact.py``'s docstring)."""
 
 import numpy as np
 import jax
@@ -178,3 +179,30 @@ def update_and_stats_errors(before, jax_after, tstate):
         diffs += float(np.abs(d_port - d_jax).sum())
         count += d_port.size
     return diffs / count, biggest, bn
+
+
+def check_exact_losses_and_grad_norm(jm, tm, tstate):
+    """The exact config's losses and pre-clip grad norm against JAX's."""
+    assert set(tm) == set(jm)
+    tm = dict(tm, total_less_pose=tm["total_train_loss"] - tm["pose_loss"])
+    jm = dict(jm, total_less_pose=jm["total_train_loss"] - jm["pose_loss"])
+    for k in ("img_loss", "ssim_loss", "cycle_loss", "total_at_entropy", "total_less_pose"):
+        assert abs(tm[k] - jm[k]) <= 1e-4 * abs(jm[k]), (k, tm[k], jm[k])
+    assert abs(tm["pose_loss"] - jm["pose_loss"]) <= 1e-3 * abs(jm["pose_loss"]), (tm["pose_loss"], jm["pose_loss"])
+    assert abs(tm["grad_norm"] - jm["grad_norm"]) <= 1e-2 * jm["grad_norm"], (tm["grad_norm"], jm["grad_norm"])
+    assert tstate.step == tstate.updates == 1 and tstate.total_notfinite == 0
+
+
+def check_exact_gradients(jax_after, tstate):
+    """Every gradient leaf's cosine with JAX's, through Adam's first moment."""
+    cos = gradient_cosines(jax_after, tstate)
+    assert len(cos) > 300
+    assert min(cos.values()) >= 0.99, min(cos.items(), key=lambda kv: kv[1])
+
+
+def check_exact_updates_and_bn_stats(before, jax_after, tstate):
+    """The parameter updates and BatchNorm running statistics against JAX's."""
+    mean_diff, biggest, bn = update_and_stats_errors(before, jax_after, tstate)
+    assert biggest <= 1.001 * LR
+    assert mean_diff < 0.01 * LR
+    assert len(bn) == 2 * 36 and max(bn.values()) <= 1e-4, max(bn.items(), key=lambda kv: kv[1])
