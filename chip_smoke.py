@@ -16,7 +16,9 @@ result line:
      levels in both padding modes (training: 12 rows x 12288 points, C=256),
      and K5's forward statistics and backward on cosine-like correlation
      volumes at the train shape (B 6, Q = S = 4096) and the inference shape
-     (B 1).  Each prints its error against a stated bound and CUDA-event
+     (B 1); K7's round-1 and round-2 logits at the stage-A shape (2 view
+     rows x 16 x 32768 tokens) and K6 on a whole single-stage chunk (32768
+     rays, V 2, S 64; its plain version takes the rays in blocks).  Each prints its error against a stated bound and CUDA-event
      times of the kernel and, where one PyTorch call computes the same
      function, of that call (median of 5 windows of 10 back-to-back calls,
      per call) and of its plain version (median of 3 single calls), beside
@@ -30,9 +32,16 @@ result line:
      joint softmax and every kernel's launch count; then the same request's
      encode with fused_argmax (K5), warm-up then timed, its launch counts
      (K5 forward 1, backward 0) and its flows against the unfused encode's;
+     then the same request rendered with render(fusion="attn_embed") (K7)
+     in cf[16, 4], and in the single-stage fast config (S 64) unfused and
+     with fusion="render_core" (K6) in turns, each warm-up then timed, with
+     launch counts, ms/image, rays/s and peak memory, and each fused
+     render's rgb and at_wt against the unfused render of its config;
+     the four renders are then profiled once each;
   5. one 1024-ray chunk rendered on the card and on the CPU (where the plain
-     versions run) from the same SceneState and weights, rgb compared at
-     the fast-config bound;
+     versions run) from the same SceneState and weights, unfused, with
+     fusion="attn_embed" (cf[16, 4]) and with fusion="render_core" (single
+     stage), rgb and at_wt compared at the fast-config bound;
   6. the training path: the same widths, fast config (fast_sampling, bf16,
      remat_ufc, convmap_direct_grad, train_onehot_small), pose + cycle +
      SSIM losses, batches of 6 synthetic 256^2 pairs with 192 rays, unfused
@@ -75,6 +84,9 @@ REPLACES = {
     "onehot_transpose_matmul": "coponerf_tpu/ops/pallas/bilinear_sample.py:458",
     "soft_argmax_stats": "coponerf_tpu/ops/pallas/soft_argmax.py:132",
     "soft_argmax_bwd": "coponerf_tpu/ops/pallas/soft_argmax.py:178",
+    "round1_logits": "coponerf_tpu/ops/pallas/experimental/attn_embed.py:57",
+    "round2_logits": "coponerf_tpu/ops/pallas/experimental/attn_embed.py:120",
+    "render_core": "coponerf_tpu/ops/pallas/experimental/render_core.py:165",
 }
 SOURCES = {
     "bilinear_sample": "coponerf_tpu_torch/csrc/bilinear_sample.cu",
@@ -84,6 +96,9 @@ SOURCES = {
     "onehot_transpose_matmul": "coponerf_tpu_torch/csrc/transpose_sample.cu",
     "soft_argmax_stats": "coponerf_tpu_torch/csrc/soft_argmax.cu",
     "soft_argmax_bwd": "coponerf_tpu_torch/csrc/soft_argmax.cu",
+    "round1_logits": "coponerf_tpu_torch/csrc/attn_embed.cu",
+    "round2_logits": "coponerf_tpu_torch/csrc/attn_embed.cu",
+    "render_core": "coponerf_tpu_torch/csrc/render_core.cu",
 }
 KERNELS = tuple(REPLACES)
 CHUNK = 32768
@@ -311,6 +326,7 @@ def phase_kernels(dev, summary):
     del g
 
     ok &= phase_soft_argmax(dev, summary, gen)
+    ok &= phase_fusion_kernels(dev, summary, gen)
     if not ok:
         raise RuntimeError("a kernel disagrees with its plain version")
 
@@ -387,9 +403,126 @@ def phase_soft_argmax(dev, summary, gen) -> bool:
     return ok
 
 
+def scaled_weights(shapes, gen, dev):
+    """Seeded f32 weights: matrices scaled by 1/sqrt(fan-in), biases 0.1."""
+    return {k: torch.randn(*shp, device=dev, generator=gen) * (0.1 if len(shp) == 1 else shp[0] ** -0.5)
+            for k, shp in shapes}
+
+
+def close_at(got: torch.Tensor, ref: torch.Tensor, max_rel: float, mean_rel: float):
+    """(max error, mean error, largest |ref|, within the bounds): errors
+    relative to the reference's largest magnitude."""
+    d = (got.float() - ref.float()).abs()
+    top = ref.abs().max().item()
+    mx, mn = d.max().item(), d.mean().item()
+    return mx, mn, top, mx <= max_rel * top and mn <= mean_rel * top
+
+
+K7_WEIGHTS = (("fk_bias", (128,)), ("wk2", (128, 128)), ("bk2", (128,)), ("wq", (16, 128)), ("bq", (128,)),
+              ("wq2", (128, 128)), ("bq2", (128,)), ("wra", (128, 128)), ("wrb", (16, 128)), ("br", (128,)),
+              ("wr2", (128, 128)), ("br2", (128,)))
+K6_WEIGHTS = (("w1", (835, 832)), ("w1b", (832,)), ("fka", (832, 128)), ("fkb", (832, 128)), ("fk_bias", (128,)),
+              ("wk2", (128, 128)), ("bk2", (128,)), ("wq", (16, 128)), ("bq", (128,)), ("wq2", (128, 128)),
+              ("bq2", (128,)), ("wra", (128, 128)), ("wrb", (16, 128)), ("brr", (128,)), ("wr2", (128, 128)),
+              ("br2", (128,)), ("wenc", (416, 128)), ("benc", (128,)), ("flva", (832, 416)), ("flvb", (832, 416)),
+              ("flv_bias", (416,)))
+
+
+def phase_fusion_kernels(dev, summary, gen) -> bool:
+    """K7's two kernels at the stage-A shape (R 2, T = 16 x 32768) and K6
+    on a single-stage chunk (B 1, V 2, S 64, N 32768), each against its
+    plain version.  Bounds (tests/test_torch_attn_embed.py and
+    tests/test_torch_render_core.py): the same bf16 operands with f32 sums
+    in another order, where a hidden activation next to a bf16 rounding
+    boundary may round the other way: K7 logits 1e-3 of the largest
+    magnitude elementwise and 1e-5 in the mean; K6 z_sum 3e-3 and 1e-4 of
+    its largest magnitude, at_wt 1e-3 and 1e-5 absolute."""
+    from coponerf_tpu_torch.ops import attn_embed as ae
+    from coponerf_tpu_torch.ops import render_core as rc
+
+    ok = True
+    R, T, N = 2, 16 * CHUNK, CHUNK
+    w = scaled_weights(K7_WEIGHTS, gen, dev)
+    ka = torch.randn(R, T, 128, device=dev, generator=gen).bfloat16()
+    kbs = torch.randn(R, T, 128, device=dev, generator=gen).bfloat16()
+    lc = torch.randn(R, T, 16, device=dev, generator=gen).bfloat16()
+    args1 = (ka, kbs, lc, *(w[k] for k in ("fk_bias", "wk2", "bk2", "wq", "bq", "wq2", "bq2")))
+    mx, mn, top, good = close_at(ae.round1_logits(*args1), ae.round1_logits_plain(*args1), 1e-3, 1e-5)
+    ok &= good
+    ms = cuda_ms(lambda: ae.round1_logits(*args1))
+    pms = cuda_ms(lambda: ae.round1_logits_plain(*args1), reps=3, inner=1)
+    M = R * T
+    flops = 2 * M * (128 * 128 + 16 * 128 + 128 * 128)
+    bms, bby = bound(2 * M * 128 * 2 + M * 16 * 2 + M * 4, flops, BF16_FLOPS)
+    log(f"[kernels] K7 round1_logits R={R} T={T}: max_abs {mx:.3e} mean_abs {mn:.3e} of largest {top:.3g} "
+        f"(bound 1e-3 / 1e-5 of it) {'ok' if good else 'FAIL'}; kernel {ms:.3f} ms "
+        f"({(2 * M * 128 * 2) / (ms * 1e-3) / 1e12:.2f} TB/s of keys), plain {pms:.3f} ms, library none (no one "
+        f"PyTorch call computes the chain), bound {bms:.3f} ms ({bby})")
+    summary["round1_logits"] = dict(max_abs_err=mx, ms=ms, plain_ms=pms, library_ms=None, bound_ms=bms, bound_by=bby)
+    del ka, kbs, args1
+
+    ze = torch.randn(1, N, 128, device=dev, generator=gen)
+    S = T // N
+    args2 = (ze, lc, *(w[k] for k in ("wq", "bq", "wq2", "bq2", "wra", "wrb", "br", "wr2", "br2")))
+    mx, mn, top, good = close_at(ae.round2_logits(*args2, S, R), ae.round2_logits_plain(*args2, S, R), 1e-3, 1e-5)
+    ok &= good
+    ms = cuda_ms(lambda: ae.round2_logits(*args2, S, R))
+    pms = cuda_ms(lambda: ae.round2_logits_plain(*args2, S, R), reps=3, inner=1)
+    # the least work: ze @ wra once per ray, the two chains per token
+    flops = 2 * M * (2 * 16 * 128 + 2 * 128 * 128) + 2 * N * 128 * 128
+    bms, bby = bound(ze.numel() * 4 + lc.numel() * 2 + M * 4, flops, BF16_FLOPS)
+    log(f"[kernels] K7 round2_logits B=1 V={R} S={S} N={N}: max_abs {mx:.3e} mean_abs {mn:.3e} of largest "
+        f"{top:.3g} (bound 1e-3 / 1e-5 of it) {'ok' if good else 'FAIL'}; kernel {ms:.3f} ms "
+        f"({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s), plain {pms:.3f} ms, library none, bound {bms:.3f} ms ({bby})")
+    summary["round2_logits"] = dict(max_abs_err=mx, ms=ms, plain_ms=pms, library_ms=None, bound_ms=bms, bound_by=bby)
+    del ze, lc, args2
+    torch.cuda.empty_cache()
+
+    # K6: one single-stage chunk, samples as K1 gives them (relu'd latents)
+    V, S = 2, 64
+    T = S * N
+    w = scaled_weights(K6_WEIGHTS, gen, dev)
+    sp = [torch.relu(torch.randn(V, T, c, device=dev, generator=gen)).bfloat16() for c in (256, 256, 256, 64)]
+    ss = [torch.relu(torch.randn(V, T, c, device=dev, generator=gen)).bfloat16() for c in (256, 256, 256, 64)]
+    ptp = torch.randn(V, T, 3, device=dev, generator=gen) * 3
+    pts = torch.randn(V, T, 3, device=dev, generator=gen) * 3
+    lc = torch.randn(V, T, 16, device=dev, generator=gen).bfloat16()
+    args = (sp, ptp, ss, pts, lc, *(w[k] for k, _ in K6_WEIGHTS))
+    with torch.no_grad():
+        z, at = rc.render_core(*args, S, V, N)
+        pz, pat = rc.render_core_plain(*args, S=S, V=V, n_rays=N)
+    zmx, zmn, ztop, zgood = close_at(z, pz, 3e-3, 1e-4)
+    da = (at - pat).abs()
+    amx, amn = da.max().item(), da.mean().item()
+    good = zgood and amx <= 1e-3 and amn <= 1e-5
+    ok &= good
+    del z, at, pz, pat
+    ms = cuda_ms(lambda: rc.render_core(*args, S, V, N), reps=3, inner=1)
+    pms = cuda_ms(lambda: rc.render_core_plain(*args, S=S, V=V, n_rays=N), reps=1, inner=1)
+    tok = V * T
+    flops = (2 * tok * 2 * 835 * 832 + 2 * tok * 2 * 832 * 128           # W1 on both sets, the key folds
+             + tok * 2 * (3 * 128 * 128 + 2 * 16 * 128)                 # kv, ce, qre chains
+             + 2 * 2 * tok * 2 * 832                                    # both rounds' weighted sums
+             + N * 2 * (2 * 2 * 832 * 416 + 416 * 128 + 128 * 128))     # value, ze, ze @ wra per ray
+    nbytes = (2 * tok * 832 * 2 + 2 * tok * 3 * 2 + tok * 16 * 2 + N * (416 + V * S) * 4
+              + sum(x.numel() for x in w.values()) * 2)
+    bms, bby = bound(nbytes, flops, BF16_FLOPS)
+    log(f"[kernels] K6 render_core B=1 V={V} S={S} N={N}: z_sum max_abs {zmx:.3e} mean_abs {zmn:.3e} of largest "
+        f"{ztop:.3g} (bound 3e-3 / 1e-4 of it), at_wt max_abs {amx:.3e} mean_abs {amn:.3e} (bound 1e-3 / 1e-5) "
+        f"{'ok' if good else 'FAIL'}; kernel {ms:.3f} ms ({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s of the "
+        f"{flops:.3g} the function needs; W1 runs twice), plain {pms:.3f} ms, library none (no one PyTorch call "
+        f"computes it), bound {bms:.3f} ms ({bby}; bytes {nbytes / 1e9:.2f} GB)")
+    summary["render_core"] = dict(max_abs_err=max(zmx, amx), ms=ms, plain_ms=pms, library_ms=None, bound_ms=bms,
+                                  bound_by=bby)
+    del sp, ss, args
+    torch.cuda.empty_cache()
+    return ok
+
+
 def profile_step(step, card: str, label: str) -> None:
-    """One train step under torch.profiler: wall time, device busy share
-    (kernel time over wall) and device time by kernel, largest first."""
+    """One train step (or render request) under torch.profiler: wall time,
+    device busy share (kernel time over wall) and device time by kernel,
+    largest first."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -401,10 +534,11 @@ def profile_step(step, card: str, label: str) -> None:
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
     total = sum(e.self_device_time_total for e in kernels) / 1e3
-    log(f"[profile] {label}, one step: wall {wall_ms:.1f} ms under the profiler, device kernel time {total:.1f} ms "
+    log(f"[profile] {label}, one call: wall {wall_ms:.1f} ms under the profiler, device kernel time {total:.1f} ms "
         f"(busy {total / wall_ms:.2f}), {sum(e.count for e in kernels)} kernel launches [{card}]")
     mine = ("bilinear_sample_kernel", "transpose_sample_kernel", "split_dense_relu", "weighted_sum_kernel",
-            "soft_argmax_partials_kernel", "soft_argmax_combine_kernel", "soft_argmax_bwd_kernel")
+            "soft_argmax_partials_kernel", "soft_argmax_combine_kernel", "soft_argmax_bwd_kernel", "round1_kernel",
+            "round2_kernel", "render_core_kernel")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         tag = " (port kernel)" if any(m in e.key for m in mine) else ""
         log(f"[profile]   {e.self_device_time_total / 1e3:8.2f} ms {e.count:5d}x  {e.key[:90]}{tag}")
@@ -449,6 +583,8 @@ def main() -> int:
         from coponerf_tpu_torch.data.synthetic import make_batch
         from coponerf_tpu_torch.models import CoPoNeRF, batch_to_torch
         from coponerf_tpu_torch.ops import _build
+        from coponerf_tpu_torch.ops.attn_embed import round1_logits, round2_logits
+        from coponerf_tpu_torch.ops.render_core import render_core
         from coponerf_tpu_torch.ops.bilinear_sample import bilinear_sample, corner_sample, onehot_transpose_matmul
         from coponerf_tpu_torch.ops.soft_argmax import soft_argmax_bwd, soft_argmax_stats
         from coponerf_tpu_torch.ops.split_matmul import split_dense_relu
@@ -483,7 +619,8 @@ def main() -> int:
     counters = {"bilinear_sample": bilinear_sample, "corner_sample": corner_sample,
                 "split_dense_relu": split_dense_relu, "weighted_sum_smaj": weighted_sum_smaj,
                 "onehot_transpose_matmul": onehot_transpose_matmul, "soft_argmax_stats": soft_argmax_stats,
-                "soft_argmax_bwd": soft_argmax_bwd}
+                "soft_argmax_bwd": soft_argmax_bwd, "round1_logits": round1_logits,
+                "round2_logits": round2_logits, "render_core": render_core}
     assert set(counters) == set(KERNELS)
     launches = {}
 
@@ -577,25 +714,104 @@ def main() -> int:
     if launches["encode_fused"] != expected:
         raise RuntimeError("a kernel of the fused encode was not launched as expected")
     del fmodel, fstate, ustate, seen
+    torch.cuda.empty_cache()
 
-    # 5. the same chunk on the card and on the CPU (plain versions)
+    # 4c. the same request through the fused renders: K7 in cf[16, 4]; the
+    # single-stage config (S 64) unfused and with K6, in turns
+    def render_request(m, fusion, se):
+        """The request's val render over its chunks: (rgb, at_wt, seconds, peak bytes)."""
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            outs = []
+            for lo in range(0, n_rays, CHUNK):
+                out = m.render(slice_chunk(batch, lo, lo + CHUNK), state, val=True, fusion=fusion)
+                check_render(out, CHUNK, se)
+                outs.append((out["rgb"], out["at_wt"]))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        return (torch.cat([o[0] for o in outs], dim=2), torch.cat([o[1] for o in outs], dim=1), dt,
+                torch.cuda.max_memory_allocated())
+
+    def agree(label, fused, unfused) -> None:
+        """A fused render against the unfused render of its config, both on the card."""
+        mrel = ((fused[0] - unfused[0]).abs().mean() / (unfused[0].abs().mean() + 1e-6)).item()
+        wdiff = (fused[1] - unfused[1]).abs().mean().item()
+        good = mrel < 2e-2 and wdiff < 2e-2
+        log(f"[infer] {label} vs unfused, both on the card: rgb mean_rel {mrel:.3e}, at_wt mean abs {wdiff:.3e} "
+            f"(bound 2e-2 each) {'ok' if good else 'FAIL'}")
+        if not good:
+            raise RuntimeError(f"the {label} render disagrees with the unfused one")
+
+    def report(path, label, r, per_chunk):
+        expected = dict.fromkeys(KERNELS, 0)
+        expected.update({k: v * n_chunks for k, v in per_chunk.items()})
+        log(f"[infer] {label}: {r[2] * 1e3:.1f} ms/image ({n_rays / r[2]:.0f} rays/s), peak device memory "
+            f"{r[3] / 2 ** 30:.2f} GiB [{card}]")
+        log(f"[infer] {label} kernel launches: {launches[path]} (expected {expected})")
+        if launches[path] != expected:
+            raise RuntimeError(f"a kernel of the {label} render was not launched as expected")
+
+    ucf = render_request(model, None, SE)
+    count("infer_attn_embed", lambda: render_request(model, "attn_embed", SE))
+    acf = count("infer_attn_embed", lambda: render_request(model, "attn_embed", SE))
+    log(f"[infer] cf[16, 4] unfused, the request once more: {ucf[2] * 1e3:.1f} ms/image, peak device memory "
+        f"{ucf[3] / 2 ** 30:.2f} GiB [{card}]")
+    report("infer_attn_embed", "cf[16, 4] fusion=attn_embed (second request)", acf,
+           dict(bilinear_sample=16, split_dense_relu=4, weighted_sum_smaj=8, round1_logits=2, round2_logits=2))
+    agree("cf[16, 4] fusion=attn_embed", acf, ucf)
+    del ucf, acf
+
+    scfg = dataclasses.replace(cfg, coarse_samples=0, fine_samples=0)
+    smodel = CoPoNeRF(scfg, image_size=IMAGE).eval()
+    smodel.load_state_dict(model.state_dict())
+    smodel = smodel.to(dev)
+    single = {None: [], "render_core": []}
+    for i in range(2):               # the first of each warms up; the second is timed
+        for fusion in ((None, "render_core") if i == 0 else ("render_core", None)):
+            path = "infer_single" if fusion is None else "infer_render_core"
+            single[fusion].append(count(path, lambda: render_request(smodel, fusion, scfg.npoints)))
+    for fusion, r in single.items():
+        log(f"[infer] single stage (S {scfg.npoints}) fusion={fusion}: first request {r[0][2] * 1e3:.1f} ms/image "
+            f"(warm-up)")
+    report("infer_single", f"single stage (S {scfg.npoints}) unfused (second request)", single[None][1],
+           dict(bilinear_sample=8, split_dense_relu=2, weighted_sum_smaj=4))
+    report("infer_render_core", f"single stage (S {scfg.npoints}) fusion=render_core (second request)",
+           single["render_core"][1], dict(bilinear_sample=8, render_core=1))
+    agree(f"single stage (S {scfg.npoints}) fusion=render_core", single["render_core"][1], single[None][1])
+    del single
+    for label, m, fusion, se in (("infer cf[16, 4] unfused", model, None, SE),
+                                 ("infer cf[16, 4] fusion=attn_embed", model, "attn_embed", SE),
+                                 ("infer single stage unfused", smodel, None, scfg.npoints),
+                                 ("infer single stage fusion=render_core", smodel, "render_core", scfg.npoints)):
+        profile_step(lambda: render_request(m, fusion, se), card, label)
+    torch.cuda.empty_cache()
+
+    # 5. the same chunk on the card and on the CPU (plain versions): unfused
+    # and fused in cf[16, 4], and K6 in the single-stage config
     small = slice_chunk(batch, 20000, 21024)
+    cases = (("unfused", model, None), ("fusion=attn_embed", model, "attn_embed"),
+             ("single stage fusion=render_core", smodel, "render_core"))
     with torch.no_grad():
-        out_gpu = model.render(small, state, val=True)
+        out_gpu = [m.render(small, state, val=True, fusion=f) for _, m, f in cases]
         torch.cuda.synchronize()
-        model_cpu = model.to("cpu")
+        model_cpu, smodel_cpu = model.to("cpu"), smodel.to("cpu")
         cpu_small = {k: {kk: vv.cpu() for kk, vv in v.items()} for k, v in small.items()}
-        t0 = time.perf_counter()
-        out_cpu = model_cpu.render(cpu_small, state.to("cpu"), val=True)
-    a, b = out_gpu["rgb"].float().cpu(), out_cpu["rgb"].float()
-    mrel = ((a - b).abs().mean() / (b.abs().mean() + 1e-6)).item()
-    wdiff = (out_gpu["at_wt"].cpu() - out_cpu["at_wt"]).abs().mean().item()
-    good = mrel < 2e-2 and wdiff < 2e-2
-    log(f"[compare] 1024-ray chunk, card vs CPU plain versions: rgb mean_rel {mrel:.3e}, at_wt mean abs {wdiff:.3e} "
-        f"(bound 2e-2 each) {'ok' if good else 'FAIL'} (CPU render {time.perf_counter() - t0:.1f} s)")
-    if not good:
-        raise RuntimeError("card and CPU renders disagree")
-    del model, model_cpu, state, out_gpu, batch
+        cpu_state = state.to("cpu")
+        for (label, m, fusion), og in zip(cases, out_gpu):
+            t0 = time.perf_counter()
+            oc = m.render(cpu_small, cpu_state, val=True, fusion=fusion)
+            a, b = og["rgb"].float().cpu(), oc["rgb"].float()
+            mrel = ((a - b).abs().mean() / (b.abs().mean() + 1e-6)).item()
+            wdiff = (og["at_wt"].cpu() - oc["at_wt"]).abs().mean().item()
+            good = mrel < 2e-2 and wdiff < 2e-2
+            log(f"[compare] 1024-ray chunk {label}, card vs CPU plain versions: rgb mean_rel {mrel:.3e}, at_wt "
+                f"mean abs {wdiff:.3e} (bound 2e-2 each) {'ok' if good else 'FAIL'} (CPU render "
+                f"{time.perf_counter() - t0:.1f} s)")
+            if not good:
+                raise RuntimeError(f"card and CPU renders disagree ({label})")
+    del model, model_cpu, smodel, smodel_cpu, state, out_gpu, batch
     torch.cuda.empty_cache()
 
     # 6. the training path, unfused and with fused_argmax (K5), from the

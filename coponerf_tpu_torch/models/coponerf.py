@@ -19,6 +19,13 @@ f32 gather (``grid_sample_tablegrad``, K4 backward) and runs W1 through K2.
 With ``fused_argmax`` the UFC extracts both flows through K5
 (``ops.soft_argmax``: its statistics kernel forward, its backward kernel in
 training).
+
+``render(fusion=...)`` (fast bf16 inference only; default None) fuses more
+of the render: ``"attn_embed"`` computes each stage's round-1 and round-2
+logits with K7 (``ops.attn_embed``) from K2's keys and the 16-wide local
+coordinates; ``"render_core"`` (single stage, repeat attention) hands both
+sample sets to K6 (``ops.render_core``), which replaces K2, the keys, both
+attention rounds and K3.
 """
 
 from __future__ import annotations
@@ -37,8 +44,10 @@ from coponerf_tpu_torch.models.layers import ConvNHWC, Dense, MLPSeq
 from coponerf_tpu_torch.models.lightfield import ResnetFC
 from coponerf_tpu_torch.models.resnet import ResNet34Encoder
 from coponerf_tpu_torch.models.ufc import UFC
+from coponerf_tpu_torch.ops.attn_embed import round1_logits, round2_logits
 from coponerf_tpu_torch.ops.bilinear_sample import bilinear_sample, grid_sample_onehot, grid_sample_tablegrad
 from coponerf_tpu_torch.ops.convmap_sample import convmap_sample_pair
+from coponerf_tpu_torch.ops.render_core import render_core
 from coponerf_tpu_torch.ops.resize import resize_nchw
 from coponerf_tpu_torch.ops.split_matmul import split_dense_relu
 from coponerf_tpu_torch.ops.weighted_sum import weighted_sum_smaj
@@ -204,7 +213,9 @@ class CoPoNeRF(nn.Module):
         return proj["overlaps_image"].reshape(B, -1, n_rays).any(dim=1)
 
     def render(self, batch: Dict[str, Any], state: SceneState, val: bool = False,
-               train: bool = False) -> Dict[str, Any]:
+               train: bool = False, fusion: Optional[str] = None) -> Dict[str, Any]:
+        """``fusion``: None, ``"attn_embed"`` (K7) or ``"render_core"`` (K6);
+        see the module docstring."""
         cfg = self.cfg
         ctx, query = batch["context"], batch["query"]
         B, V = ctx["rgb"].shape[:2]
@@ -231,6 +242,14 @@ class CoPoNeRF(nn.Module):
         smaj = cfg.fast_sampling and not train
         two_stage = smaj and cfg.coarse_samples > 0 and cfg.fine_samples > 0
         S1 = cfg.coarse_samples if two_stage else S
+        if fusion is not None:
+            if fusion not in ("attn_embed", "render_core"):
+                raise ValueError(f"unknown fusion {fusion!r}")
+            if not smaj or cfg.compute_dtype != "bfloat16":
+                raise ValueError(f"fusion={fusion!r} runs in the fast bf16 inference render only "
+                                 "(fast_sampling, compute_dtype='bfloat16', train=False)")
+            if fusion == "render_core" and (two_stage or not cfg.repeat_attention):
+                raise ValueError("fusion='render_core' needs one sampling stage and repeat_attention")
 
         def tokf(t, S_):
             """(B*V, N, S_, C) -> (B*V, T, C) in the active token order."""
@@ -269,7 +288,9 @@ class CoPoNeRF(nn.Module):
         if fuse_conv:
             tables = tables[:-1]
             rgb_n = _normalize_rgb(ctx["rgb"].reshape(B * V, H, W, 3))
-        tables_sw = [swap_views(z) for z in tables]
+        # K6 takes the secondary samples with their view rows flipped, which
+        # it gets by sampling the unswapped tables at flipped coordinates
+        tables_sw = [swap_views(z) for z in tables] if fusion != "render_core" else None
 
         ctx_flat_c2w = context_cam2world.reshape(B * V, 4, 4)
         ctx_intr = ctx["intrinsics"]
@@ -340,6 +361,44 @@ class CoPoNeRF(nn.Module):
                 t4, pr4 = tok.reshape(R, n_rays, S_, -1), per_ray[:, :, None]
             return (t4 + pr4).reshape(tok.shape)
 
+        def sample_coords(pixel_val, pt):
+            """Per-sample camera ray directions and depth encoding."""
+            cam_rays = G.get_ray_directions_cam(pixel_val, ctx_flat_intr, H, W)
+            depth = torch.linalg.vector_norm(pt - query_ray_orig, dim=-1)[..., None]
+            depth = torch.nan_to_num(depth, nan=1e6, posinf=1e6, neginf=1e6).detach()
+            depth_encode = torch.cat(
+                [torch.tanh(depth), torch.tanh(depth / 10.0), torch.tanh(depth / 100.0), torch.tanh(depth / 1000.0)],
+                dim=-1,
+            )
+            return cam_rays, depth_encode
+
+        def local_coords(cam_rays, depth_encode, S_):
+            """The 16-wide local coordinates per token, in token order."""
+            ray_dir_s = ray_dir[:, :, None, :].expand(cam_rays.shape)
+            query_ray_orig_ex = query_ray_orig.expand(cam_rays.shape)
+            lc = torch.cat(
+                [cam_rays, torch.zeros_like(query_ray_orig_ex), ray_dir_s, depth_encode, query_ray_orig_ex],
+                dim=-1,
+            )
+            return tokf(lc.reshape(B * V, n_rays, S_, -1), S_)
+
+        def fused_stage(pixel_val, pt, samples_p, samples_s, pt_primary, pt_secondary, S_):
+            """One stage under ``fusion``: K7's round-1 logits from K2's keys,
+            or, for K6, the stage's inputs as K6 takes them."""
+            st = {"S": S_, "tg": (B, V, S_, n_rays), "pixel_val": pixel_val, "pt": pt,
+                  "lc16": local_coords(*sample_coords(pixel_val, pt), S_).to(torch.bfloat16)}
+            if fusion == "render_core":
+                st.update(samples_p=samples_p, samples_s=samples_s, pt_p=pt_primary,
+                          pt_s=swap_views(pt_secondary))
+                return st
+            pre_p, ka = pre_act(samples_p, pt_primary, fk_a)
+            pre_s, kb = pre_act(samples_s, pt_secondary, fk_b)
+            km2, qe, qe2 = self.key_map_2, self.query_embed, self.query_embed_2
+            dot1 = round1_logits(ka, kb, st["lc16"], fk_bias, km2.kernel, km2.bias, qe.kernel, qe.bias,
+                                 qe2.kernel, qe2.bias)
+            st.update(pre_p=pre_p, pre_s=pre_s, dot1=dot1.reshape(st["tg"]))
+            return st
+
         def run_stage(tvals, S_):
             pixel_val = start[:, :, None, :] + (end - start)[:, :, None, :] * tvals[..., None]
             pv_flat = tokf(pixel_val, S_)
@@ -352,7 +411,10 @@ class CoPoNeRF(nn.Module):
                 G.project(pt_cross[..., 0], pt_cross[..., 1], pt_cross[..., 2], intr_other)[..., :2]
             )
             px_flat = tokf(px_cross, S_)
-            samples_s = [sample(z, px_flat, "zeros") for z in tables_sw]
+            if fusion == "render_core":
+                samples_s = [sample(z, swap_views(px_flat), "zeros") for z in tables]
+            else:
+                samples_s = [sample(z, px_flat, "zeros") for z in tables_sw]
             if fuse_conv:
                 sp_conv, ss_conv = convmap_sample_pair(
                     rgb_n, self.conv_map.weight, self.conv_map.bias, pv_flat, px_flat,
@@ -363,19 +425,15 @@ class CoPoNeRF(nn.Module):
 
             pt_primary = tokf(scrub(pt_own).detach(), S_)
             pt_secondary = tokf(scrub(pt_cross), S_)
+            if fusion is not None:
+                return fused_stage(pixel_val, pt, samples_p, samples_s, pt_primary, pt_secondary, S_)
             pre_p, ka = pre_act(samples_p, pt_primary, fk_a)
             pre_s, kb = pre_act(samples_s, pt_secondary, fk_b)
             tg_ = (B, V, S_, n_rays) if smaj else (B, V, n_rays, S_)
             kpre = ka.reshape(*tg_, -1) + kb.reshape(*tg_, -1) + fk_bias.to(cd)
             kv_bv = self.key_map_2(torch.relu(kpre))
 
-            cam_rays = G.get_ray_directions_cam(pixel_val, ctx_flat_intr, H, W)
-            depth = torch.linalg.vector_norm(pt - query_ray_orig, dim=-1)[..., None]
-            depth = torch.nan_to_num(depth, nan=1e6, posinf=1e6, neginf=1e6).detach()
-            depth_encode = torch.cat(
-                [torch.tanh(depth), torch.tanh(depth / 10.0), torch.tanh(depth / 100.0), torch.tanh(depth / 1000.0)],
-                dim=-1,
-            )
+            cam_rays, depth_encode = sample_coords(pixel_val, pt)
             if fast_embed:
                 ps_tok = tokf(
                     torch.cat([cam_rays, depth_encode], dim=-1).reshape(B * V, n_rays, S_, -1), S_
@@ -384,13 +442,7 @@ class CoPoNeRF(nn.Module):
                 pre1 = add_perray(ps_tok @ qe_ps, pre1_ray, S_)
                 coords_embed = self.query_embed_2(torch.relu(pre1))
             else:
-                ray_dir_s = ray_dir[:, :, None, :].expand(cam_rays.shape)
-                query_ray_orig_ex = query_ray_orig.expand(cam_rays.shape)
-                local_coords = torch.cat(
-                    [cam_rays, torch.zeros_like(query_ray_orig_ex), ray_dir_s, depth_encode, query_ray_orig_ex],
-                    dim=-1,
-                )
-                lc_tok = tokf(local_coords.reshape(B * V, n_rays, S_, -1), S_)
+                lc_tok = local_coords(cam_rays, depth_encode, S_)
                 coords_embed = self.query_embed_2(torch.relu(self.query_embed(lc_tok)))
             ce = coords_embed.reshape(*tg_, -1)
             dot1 = torch.sum(kv_bv * ce, dim=-1, dtype=torch.float32) / 11.31
@@ -444,11 +496,35 @@ class CoPoNeRF(nn.Module):
                 ub = b2 if ub is None else ub + b2
             return ua @ flv_a + ub @ flv_b + flv_bias
 
-        w1_list, at_wt_bv = joint_softmax([st["dot1"] for st in stages])
-        at_wt = at_wt_bv.reshape(B * V, n_rays, -1)
-        z_sum = weighted_latent(w1_list)
+        qre_mod, qre2_mod = self.query_repeat_embed, self.query_repeat_embed_2
+        ze_rows = qre_mod.kernel.shape[0] - 16
+        if fusion == "render_core":
+            st = stages[0]
+            km2, qe, qe2, enc = self.key_map_2, self.query_embed, self.query_embed_2, self.encode_latent
+            z_sum, at = render_core(
+                st["samples_p"], st["pt_p"], st["samples_s"], st["pt_s"], st["lc16"],
+                w1_k, w1_b, fk_a, fk_b, fk_bias, km2.kernel, km2.bias, qe.kernel, qe.bias, qe2.kernel, qe2.bias,
+                qre_mod.kernel[:ze_rows], qre_mod.kernel[ze_rows:], qre_mod.bias, qre2_mod.kernel, qre2_mod.bias,
+                enc.kernel, enc.bias, flv_a, flv_b, flv_bias, S, V, n_rays,
+            )
+            at_wt = at.reshape(B, n_rays, V, S).permute(0, 2, 1, 3).reshape(B * V, n_rays, S)
+        else:
+            w1_list, at_wt_bv = joint_softmax([st["dot1"] for st in stages])
+            at_wt = at_wt_bv.reshape(B * V, n_rays, -1)
+            z_sum = weighted_latent(w1_list)
 
-        if cfg.repeat_attention:
+        if cfg.repeat_attention and fusion == "attn_embed":
+            z_embed = self.encode_latent(z_sum)
+            qe, qe2 = self.query_embed, self.query_embed_2
+            dots2 = [
+                round2_logits(z_embed, st["lc16"], qe.kernel, qe.bias, qe2.kernel, qe2.bias,
+                              qre_mod.kernel[:ze_rows], qre_mod.kernel[ze_rows:], qre_mod.bias,
+                              qre2_mod.kernel, qre2_mod.bias, st["S"], V).reshape(st["tg"])
+                for st in stages
+            ]
+            w2_list, _ = joint_softmax(dots2)
+            z_sum = weighted_latent(w2_list) + V * z_sum
+        elif cfg.repeat_attention and fusion is None:
             z_embed = self.encode_latent(z_sum)
             C_ze = z_embed.shape[-1]
             dots2 = []

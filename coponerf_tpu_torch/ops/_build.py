@@ -53,6 +53,12 @@ SIGNATURES = {
     "k5_soft_argmax_stats": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, D, P],
     # c, rowf, colf, dr, dcol, xs, ys, xq, yq, out, B, Q, S, beta, stream
     "k5_soft_argmax_bwd": [P, P, P, P, P, P, P, P, P, P, I, I, I, D, P],
+    # ka, kbs, lc, fkb, wk2t, bk2, wqt, bq, wq2t, bq2, out, tokens, stream
+    "k7_round1_logits": [P] * 11 + [L, P],
+    # ze, lc, wqt, bq, wq2t, bq2, wrat, wrbt, br, wr2t, br2, out, B, V, S, N, stream
+    "k7_round2_logits": [P] * 12 + [I, I, I, I, P],
+    # 4 p levels, pt_p, 4 s levels, pt_s, lc, 21 weights and biases, z_sum, at_wt, B, V, S, N, stream
+    "k6_render_core": [P] * 34 + [I, I, I, I, P],
 }
 
 _lock = threading.Lock()

@@ -1,7 +1,8 @@
-"""The port runs without JAX: an inference render and a train step, the
-latter also with ``fused_argmax=True``, load no module of ``jax``, ``flax``
-or the JAX package ``coponerf_tpu``.  On CPU tensors its kernel wrappers
-take the plain versions without counting a launch."""
+"""The port runs without JAX: an inference render (also with both
+``render(fusion=...)`` options) and a train step, the latter also with
+``fused_argmax=True``, load no module of ``jax``, ``flax`` or the JAX
+package ``coponerf_tpu``.  On CPU tensors its kernel wrappers take the plain
+versions without counting a launch."""
 
 import dataclasses
 import os
@@ -13,7 +14,9 @@ import torch
 from coponerf_tpu_torch.config import ModelConfig
 from coponerf_tpu_torch.data.synthetic import make_batch
 from coponerf_tpu_torch.models import CoPoNeRF, batch_to_torch
+from coponerf_tpu_torch.ops.attn_embed import round1_logits, round2_logits
 from coponerf_tpu_torch.ops.bilinear_sample import bilinear_sample, corner_sample, onehot_transpose_matmul
+from coponerf_tpu_torch.ops.render_core import render_core
 from coponerf_tpu_torch.ops.soft_argmax import soft_argmax_bwd, soft_argmax_stats
 from coponerf_tpu_torch.ops.split_matmul import split_dense_relu
 from coponerf_tpu_torch.ops.weighted_sum import weighted_sum_smaj
@@ -40,8 +43,15 @@ batch, _ = make_batch(batch_size=1, image_size=32, n_rays=8, seed=0)
 model = init_weights(CoPoNeRF(cfg, image_size=32).eval(), seed=0)
 tb = batch_to_torch(batch, "cpu")
 with torch.no_grad():
-    out = model.render(tb, model.encode(tb), val=True)
-assert torch.isfinite(out["rgb"]).all()
+    state = model.encode(tb)
+    out = model.render(tb, state, val=True)
+    assert torch.isfinite(out["rgb"]).all()
+    out = model.render(tb, state, val=True, fusion="attn_embed")
+    assert torch.isfinite(out["rgb"]).all()
+    single = CoPoNeRF(dataclasses.replace(cfg, coarse_samples=0, fine_samples=0), image_size=32).eval()
+    single.load_state_dict(model.state_dict())
+    out = single.render(tb, state, val=False, fusion="render_core")
+    assert torch.isfinite(out["rgb"]).all()
 tcfg = Config(model=cfg, loss=LossConfig(pose=True, cycle=True, ssim=True), train=TrainConfig(lr=1e-4))
 state = trainer.create_train_state(tcfg, 32, "cpu", model=model)
 metrics = trainer.train_step(state, batch_to_torch(make_batch(batch_size=2, image_size=32, n_rays=8, seed=1)[0], "cpu"), tcfg)
@@ -68,21 +78,28 @@ def test_port_imports_and_runs_without_jax():
 
 
 def test_cpu_tensors_take_the_plain_versions():
-    """Inference and a train-mode forward and backward on CPU tensors, the
-    latter also with ``fused_argmax=True``, leave every kernel's launch
-    count at zero (K1 and its corner-id entry, K2, K3, K4, K5's forward and
-    backward)."""
+    """Inference (unfused and with both fusions) and a train-mode forward
+    and backward on CPU tensors, the latter also with ``fused_argmax=True``,
+    leave every kernel's launch count at zero (K1 and its corner-id entry,
+    K2, K3, K4, K5's forward and backward, K6, K7's two rounds)."""
     cfg = ModelConfig(mask_upsample=32, npoints=4, ufc_layer_nums=(1, 1, 1), fast_sampling=True,
                       compute_dtype="bfloat16", coarse_samples=4, fine_samples=2)
     batch, _ = make_batch(batch_size=1, image_size=32, n_rays=8, seed=1)
     model = init_weights(CoPoNeRF(cfg, image_size=32).eval(), seed=1)
     tb = batch_to_torch(batch, "cpu")
     counters = (bilinear_sample, corner_sample, split_dense_relu, weighted_sum_smaj, onehot_transpose_matmul,
-                soft_argmax_stats, soft_argmax_bwd)
+                soft_argmax_stats, soft_argmax_bwd, round1_logits, round2_logits, render_core)
     before = tuple(c.launches for c in counters)
     with torch.no_grad():
-        out = model.render(tb, model.encode(tb), val=True)
-    assert torch.isfinite(out["rgb"]).all()
+        state = model.encode(tb)
+        out = model.render(tb, state, val=True)
+        assert torch.isfinite(out["rgb"]).all()
+        out = model.render(tb, state, val=True, fusion="attn_embed")
+        assert torch.isfinite(out["rgb"]).all()
+        single = CoPoNeRF(dataclasses.replace(cfg, coarse_samples=0, fine_samples=0), image_size=32).eval()
+        single.load_state_dict(model.state_dict())
+        out = single.render(tb, state, val=True, fusion="render_core")
+        assert torch.isfinite(out["rgb"]).all()
     out = model(tb, val=False, train=True)
     out["rgb"].sum().backward()
     assert model.feature_cost_aggregation.proj_feat_0.Dense_0.weight.grad is not None
@@ -91,4 +108,4 @@ def test_cpu_tensors_take_the_plain_versions():
     (out["rgb"].sum() + out["flow"][0].square().sum()).backward()
     assert fused.feature_cost_aggregation.proj_feat_0.Dense_0.weight.grad is not None
     after = tuple(c.launches for c in counters)
-    assert before == after == (0,) * 7
+    assert before == after == (0,) * 10

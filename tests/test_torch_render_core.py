@@ -1,0 +1,126 @@
+"""K6: the port's ``render_core`` held to the JAX package's Pallas kernel
+(``ops/pallas/experimental/render_core.py``, run in interpret mode on the
+CPU) on the same seeded inputs, at real widths (levels 256/256/256/64, W1
+835 -> 832, keys 128, values 416) and V=2, S=4, N=24.  On the CPU the port's
+wrapper runs its plain version.
+
+Both sides take bf16 operands with f32 sums in other orders.  An
+activation whose f32 value lies next to a bf16 rounding boundary then
+rounds to the neighbouring bf16 value on one side (2^-8 relative; the 832
+pre-activations, the 128-wide hidden layers and the weighted sums are all
+rounded).  Measured against JAX at seeds 0 and 1: ``z_sum`` 4.4e-4 of its
+largest magnitude elementwise and 1.1e-5 in the mean, ``at_wt`` (in
+[0, 1]) 4.7e-5 and 8.6e-7.  So ``z_sum`` is held at 3e-3 of its largest
+magnitude elementwise and 1e-4 in the mean, and ``at_wt`` at 1e-3 and
+1e-5.  The kernel-vs-plain checks on the
+card are at the end, marked ``cuda``.
+"""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from coponerf_tpu.ops.pallas.experimental.render_core import render_core as jax_render_core
+from coponerf_tpu_torch.ops import render_core as rc
+
+SPLITS = (256, 256, 256, 64)
+WEIGHTS = (("w1", (835, 832)), ("w1b", (832,)), ("fka", (832, 128)), ("fkb", (832, 128)), ("fk_bias", (128,)),
+           ("wk2", (128, 128)), ("bk2", (128,)), ("wq", (16, 128)), ("bq", (128,)), ("wq2", (128, 128)),
+           ("bq2", (128,)), ("wra", (128, 128)), ("wrb", (16, 128)), ("brr", (128,)), ("wr2", (128, 128)),
+           ("br2", (128,)), ("wenc", (416, 128)), ("benc", (128,)), ("flva", (832, 416)), ("flvb", (832, 416)),
+           ("flv_bias", (416,)))
+
+
+def make_inputs(rng, B, V, S, N):
+    """Seeded f32 inputs: bf16-valued samples, positions and coordinates as
+    the render gives them, weights scaled like the model's."""
+    R, T = B * V, S * N
+
+    def bf16(*shape, scale=1.0):
+        x = rng.standard_normal(shape).astype(np.float32) * scale
+        return np.array(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
+
+    tok = dict(samples_p=[np.maximum(bf16(R, T, c), 0) for c in SPLITS], pt_p=bf16(R, T, 3, scale=3.0),
+               samples_s=[np.maximum(bf16(R, T, c), 0) for c in SPLITS], pt_s=bf16(R, T, 3, scale=3.0),
+               lc=bf16(R, T, 16))
+    w = {}
+    for name, shape in WEIGHTS:
+        scale = 0.1 if len(shape) == 1 else shape[0] ** -0.5
+        w[name] = (rng.standard_normal(shape) * scale).astype(np.float32)
+    return tok, w
+
+
+def run_port(tok, w, S, V, N, device="cpu"):
+    def t(x):
+        return torch.from_numpy(x).to(device)
+
+    return rc.render_core([t(x).bfloat16() for x in tok["samples_p"]], t(tok["pt_p"]),
+                          [t(x).bfloat16() for x in tok["samples_s"]], t(tok["pt_s"]), t(tok["lc"]),
+                          *(t(w[k]) for k, _ in WEIGHTS), S, V, N)
+
+
+def check(got, ref):
+    z, at = (g.float().cpu() for g in got)
+    rz, rat = (torch.as_tensor(np.asarray(r, dtype=np.float32)) for r in ref)
+    assert z.shape == rz.shape and at.shape == rat.shape
+    assert torch.isfinite(z).all() and torch.isfinite(at).all()
+    top = rz.abs().max().item()
+    dz = (z - rz).abs()
+    assert dz.max().item() <= 3e-3 * top, (dz.max().item(), top)
+    assert dz.mean().item() <= 1e-4 * top, (dz.mean().item(), top)
+    da = (at - rat).abs()
+    assert da.max().item() <= 1e-3 and da.mean().item() <= 1e-5, (da.max().item(), da.mean().item())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_render_core_matches_jax(seed):
+    B, V, S, N = 1, 2, 4, 24
+    tok, w = make_inputs(np.random.default_rng(seed), B, V, S, N)
+
+    def j(x):
+        return jnp.asarray(x)
+
+    ref = jax_render_core([j(x).astype(jnp.bfloat16) for x in tok["samples_p"]], j(tok["pt_p"]),
+                          [j(x).astype(jnp.bfloat16) for x in tok["samples_s"]], j(tok["pt_s"]), j(tok["lc"]),
+                          *(j(w[k]) for k, _ in WEIGHTS), S=S, V=V, n_rays=N)
+    got = run_port(tok, w, S, V, N)
+    check(got, ref)
+    at = got[1].numpy()
+    np.testing.assert_allclose(at.sum(-1), 1.0, atol=1e-5)
+
+
+def test_render_core_cpu_counts_no_launch():
+    tok, w = make_inputs(np.random.default_rng(2), 2, 2, 3, 5)
+    before = rc.render_core.launches
+    z, at = run_port(tok, w, 3, 2, 5)
+    assert z.shape == (2, 5, 416) and at.shape == (2, 5, 6)
+    assert rc.render_core.launches == before
+
+
+# ------------------------------------------- kernel vs plain, on the card --
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, S, N", [(1, 64, 256), (2, 4, 24), (1, 3, 5), (1, 20, 70)])
+def test_render_core_kernel_matches_plain(cuda, B, S, N):
+    """V*S of 128 (the main path's), 8, 6 and 40 tokens a ray (ragged 32-token chunks)."""
+    tok, w = make_inputs(np.random.default_rng(S * N), B, 2, S, N)
+    n = rc.render_core.launches
+    got = run_port(tok, w, S, 2, N, cuda)
+    torch.cuda.synchronize()
+    assert rc.render_core.launches == n + 1
+
+    def t(x):
+        return torch.from_numpy(x).to(cuda)
+
+    ref = rc.render_core_plain([t(x).bfloat16() for x in tok["samples_p"]], t(tok["pt_p"]),
+                               [t(x).bfloat16() for x in tok["samples_s"]], t(tok["pt_s"]), t(tok["lc"]),
+                               *(t(w[k]) for k, _ in WEIGHTS), S=S, V=2, n_rays=N)
+    check(got, [r.cpu().numpy() for r in ref])

@@ -10,6 +10,8 @@ package's own fast and exact encodes give relative poses ~0.15 apart.  So
 the val-mode render, whose second hypothesis is posed by that estimate, is
 held to JAX on JAX's own SceneState (converted), and the port's end-to-end
 encode+render is held to JAX in non-val mode, which does not read the pose.
+The same holds for ``render(fusion="attn_embed")`` (K7 computes both
+attention rounds' logits), held to the same unfused JAX renders.
 """
 
 import numpy as np
@@ -78,6 +80,8 @@ def fast_pair():
             "own_nonval": port.render(tb, state, val=False),
             "own_val": port.render(tb, state, val=True),
             "jaxstate_val": port.render(tb, _to_port_state(jstate), val=True),
+            "fused_nonval": port.render(tb, state, val=False, fusion="attn_embed"),
+            "fused_jaxstate_val": port.render(tb, _to_port_state(jstate), val=True, fusion="attn_embed"),
         }
     return jstate, ref, state, got
 
@@ -95,7 +99,8 @@ def test_fast_encode_matches_jax_at_bf16_level(fast_pair):
     torch.testing.assert_close(R @ R.transpose(1, 2), torch.eye(3)[None], atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("case, val", [("jaxstate_val", True), ("own_nonval", False)])
+@pytest.mark.parametrize("case, val", [("jaxstate_val", True), ("own_nonval", False),
+                                       ("fused_jaxstate_val", True), ("fused_nonval", False)])
 def test_fast_render_matches_jax(fast_pair, case, val):
     _, ref, _, got = fast_pair
     out, jout = got[case], ref[val]
@@ -106,9 +111,10 @@ def test_fast_render_matches_jax(fast_pair, case, val):
     assert np.abs(_np(out["at_wt"]) - _np(jout["at_wt"])).mean() < 2e-2
 
 
-def test_fast_val_render_contracts(fast_pair):
+@pytest.mark.parametrize("case", ["own_val", "fused_jaxstate_val"])
+def test_fast_val_render_contracts(fast_pair, case):
     _, _, _, got = fast_pair
-    out = got["own_val"]
+    out = got[case]
     assert out["pixel_val"].shape[-2] == SE
     w = _np(out["at_wt"]).reshape(1, 2, N_RAYS, SE)
     np.testing.assert_allclose(w.sum(axis=(1, 3)), 1.0, atol=1e-4)
