@@ -1,0 +1,152 @@
+"""Times the port's bilinear samplers and the fast train step on one card.
+
+    python -m coponerf_tpu_torch.bench_sampler [--steps 5]
+
+Prints one JSON line with:
+- ``train_k1``: ``bilinear_sample`` (K1) at the training shape, ms per call
+  for each small level (16^2, 32^2, 64^2 x 256, 12 rows x 192 rays x 64
+  samples) in both padding modes;
+- ``stage_a``: per sample set of inference stage A (2 view rows, 16 x
+  32768 points, the four render levels), ``multilevel_sample`` (K8a, one
+  launch) and the four one-level ``bilinear_sample`` calls, in turns;
+- ``train_step``: the fast-config train step at batch 6 x 256^2 pairs
+  (pose + cycle + SSIM), the host-clock ms of each timed step, and one
+  step's device kernel time under ``torch.profiler``, in all and in the
+  sampler's kernels.
+
+Kernel times are CUDA events around 10 back-to-back calls, the median of 5
+such windows.  Run it in two checkouts of the repo in turns on one card
+(A, B, B, A) to compare them: it uses only entry points both have.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import time
+
+import torch
+
+IMAGE = 256
+CHUNK = 32768
+TRAIN_ROWS = 12
+TRAIN_RAYS = 192
+SAMPLER_KERNELS = ("multilevel_sample_kernel", "bilinear_sample_kernel")
+
+
+def cuda_ms_in_turns(fns, reps: int = 5, inner: int = 10):
+    """Median ms per call of each of ``fns``, timed in turns (the order
+    reversed every other window)."""
+    for fn in fns:
+        fn()
+    times = [[] for _ in fns]
+    for r in range(reps):
+        for i in (range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(inner):
+                fns[i]()
+            b.record()
+            b.synchronize()
+            times[i].append(a.elapsed_time(b) / inner)
+    return [statistics.median(t) for t in times]
+
+
+def train_grid(gen, dev, shift: float) -> torch.Tensor:
+    """(rows, rays * 64, 2) points, ray-major, each ray a segment across the image."""
+    start = torch.rand(TRAIN_ROWS, TRAIN_RAYS, 1, 2, device=dev, generator=gen) * 0.4 - 1.0 - shift
+    end = torch.rand(TRAIN_ROWS, TRAIN_RAYS, 1, 2, device=dev, generator=gen) * 0.4 + 0.6
+    t = torch.linspace(0, 1, 64, device=dev)[None, None, :, None]
+    return (start + (end - start) * t).reshape(TRAIN_ROWS, TRAIN_RAYS * 64, 2).contiguous()
+
+
+def stage_a_grid(gen, dev, shift: float) -> torch.Tensor:
+    """(2, 16 * 32768, 2) sample-major points: token s * N + n on ray n's
+    segment, rays in raster order."""
+    n = torch.arange(CHUNK, device=dev, dtype=torch.float32)
+    u = (n % IMAGE) / (IMAGE - 1) * 2 - 1
+    v = (n // IMAGE) / (IMAGE - 1) * 2 - 1
+    start = torch.stack([(u + 1) / 2 - 0.95 - shift, v * 0.9], -1)
+    direction = torch.randn(2, 1, 2, device=dev, generator=gen) * 0.2 + torch.tensor([0.9, 0.1], device=dev)
+    t = torch.linspace(0, 1, 16, device=dev)
+    return (start[None, None] + t[None, :, None, None] * direction[:, :, None, :]).reshape(2, -1, 2).contiguous()
+
+
+def time_samplers(dev) -> dict:
+    from coponerf_tpu_torch.ops.bilinear_sample import bilinear_sample, multilevel_sample
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {"train_k1": {}, "stage_a": {}}
+    for hw in (16, 32, 64):
+        table = torch.randn(TRAIN_ROWS, hw, hw, 256, device=dev, generator=gen).bfloat16()
+        for mode, shift in (("border", 0.0), ("zeros", 0.3)):
+            grid = train_grid(gen, dev, shift)
+            (ms,) = cuda_ms_in_turns([lambda: bilinear_sample(table, grid, mode)])
+            out["train_k1"][f"{hw}x{hw}x256 {mode}"] = ms
+    tables = [torch.randn(2, hw, hw, c, device=dev, generator=gen).bfloat16()
+              for hw, c in ((16, 256), (32, 256), (64, 256), (IMAGE, 64))]
+    for mode, shift in (("border", 0.0), ("zeros", 0.4)):
+        grid = stage_a_grid(gen, dev, shift)
+        ml, four = cuda_ms_in_turns([lambda: multilevel_sample(tables, grid, mode),
+                                     lambda: [bilinear_sample(t, grid, mode) for t in tables]])
+        out["stage_a"][mode] = {"multilevel_sample": ml, "four_bilinear_sample": four}
+    return out
+
+
+def time_train_step(dev, n_steps: int) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    from coponerf_tpu_torch.config import Config, LossConfig, ModelConfig, TrainConfig
+    from coponerf_tpu_torch.data.synthetic import make_batch
+    from coponerf_tpu_torch.models import CoPoNeRF, batch_to_torch
+    from coponerf_tpu_torch.training import trainer
+    from coponerf_tpu_torch.utils.init import init_weights
+
+    cfg = Config(model=ModelConfig(fast_sampling=True, compute_dtype="bfloat16"),
+                 loss=LossConfig(pose=True, cycle=True, ssim=True), train=TrainConfig())
+    state = trainer.create_train_state(cfg, IMAGE, dev,
+                                       model=init_weights(CoPoNeRF(cfg.model, image_size=IMAGE), seed=0))
+    batches = [batch_to_torch(make_batch(batch_size=6, image_size=IMAGE, n_rays=TRAIN_RAYS, seed=s)[0], dev)
+               for s in (1, 2)]
+    times = []
+    for i in range(n_steps + 2):          # two warm-up steps
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(state, batches[i % 2], cfg)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(state, batches[0], cfg)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    sampler = [e for e in kernels if any(k in e.key for k in SAMPLER_KERNELS)]
+    return {"step_ms": times[2:], "median_step_ms": statistics.median(times[2:]),
+            "device_kernel_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
+            "sampler_kernel_ms": sum(e.self_device_time_total for e in sampler) / 1e3,
+            "sampler_launches": sum(e.count for e in sampler)}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=5, help="timed train steps (after two warm-up steps)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("bench_sampler: no CUDA device")
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    from coponerf_tpu_torch.ops import _build
+
+    _build.lib()
+    result = {"device": torch.cuda.get_device_name(0), **time_samplers(dev)}
+    torch.cuda.empty_cache()
+    result["train_step"] = time_train_step(dev, args.steps)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

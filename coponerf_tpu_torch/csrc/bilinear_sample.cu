@@ -1,21 +1,38 @@
-// K1: bilinear sampling of a flat latent table at [-1, 1] (x, y) points.
+// K1 and K8: bilinear sampling of flat latent tables at [-1, 1] (x, y)
+// points, and the corner-id gather.
 //
-// Replaces coponerf_tpu/ops/pallas/bilinear_sample.py:onehot_matmul_sample_xy
-// (the banded one-hot selection matmul, reached through grid_sample_onehot)
-// and, for the 256^2 level, the XLA patch gather of ops/grid_sample.py.
+// k1_multilevel_sample samples 1 to 4 levels at one shared grid in one
+// launch.  With one level it is K1, replacing
+// coponerf_tpu/ops/pallas/bilinear_sample.py:onehot_matmul_sample_xy (the
+// banded one-hot selection matmul, reached through grid_sample_onehot);
+// with the render's levels it is K8a, replacing
+// coponerf_tpu/ops/pallas/experimental/multilevel_sample.py:multilevel_banded_sample
+// (the three small levels, each table resident in VMEM, walked in row
+// bands); with one large level and f32 output it is K8b, replacing
+// experimental/windowed_sample.py:onehot_window_sample_xy (row-window DMAs).
 //
 // What bounds it on the H100: bytes.  Each point reads 4 corner rows of C
 // channels and writes one row; there is no reuse to feed a tensor core.  The
 // TPU built a one-hot matrix because its gather engine was slow; Hopper's
-// load path gathers 16-byte vectors directly, so this kernel is a direct
-// 4-corner gather: one thread per 16-byte channel vector of one point,
-// neighbouring threads on neighbouring bytes of the same table row, corner
-// weights in f32 from the same pixel coordinates as the plain version
-// (ops/grid_sample.py), f32 blend, one 16-byte store.  Tables and output
-// are bf16 (the fast path's only use; the exact path samples with the f32
-// gather of ops/grid_sample.py, as the JAX package does).
-// Epipolar points of consecutive rays land on nearby rows, so most corner
-// reads hit L2.
+// load path gathers 16-byte vectors directly, so this is a direct 4-corner
+// gather: one thread per 16-byte channel vector of one point, neighbouring
+// threads on neighbouring bytes of the same table row, corner weights in
+// f32 from the same pixel coordinates as the plain version
+// (ops/grid_sample.py), f32 blend, one 16-byte store (two for f32 output).
+// Epipolar points of consecutive rays land on nearby rows, and the four
+// tables of a view pair take about 22 MiB in bf16, inside the 50 MB L2, so
+// the TPU's bands, VMEM residency and DMA windows have no counterpart here
+// and no table size limit applies.
+//
+// The launch is a grid of (blocks over the levels, batch rows).  Along x
+// the blocks are level-major: each level's share is laid out as a one-level
+// launch (one thread per (point, vector) of the level), and a block finds
+// its level from the levels' first-block offsets, so a block reads one
+// table.  Spreading a point's vectors of all levels over consecutive
+// threads made every block read all four tables and ran slower (PERF.md).
+// The batch row is blockIdx.y, so a thread's point and vector come from
+// 32-bit arithmetic: a shift where C / 8 is a power of two (every level the
+// model samples), else one 32-bit division.
 //
 // Second entry, k1_corner_sample: the same gather from precomputed corner
 // ids and weights (B, P, 4), replacing
@@ -36,20 +53,21 @@ namespace coponerf {
 
 using bf16 = __nv_bfloat16;
 
-__global__ void bilinear_sample_kernel(const bf16* __restrict__ table, const float* __restrict__ grid,
-                                       bf16* __restrict__ out, int B, int H, int W, int C,
-                                       long long P, int zeros_mode) {
-  constexpr int VEC = Vec16<bf16>::N;
-  const int nvec = C / VEC;
-  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long total = static_cast<long long>(B) * P * nvec;
-  if (tid >= total) return;
-  const long long bp = tid / nvec;
-  const int v = static_cast<int>(tid - bp * nvec);
-  const long long b = bp / P;
+// The border clamp of a level of ``size`` texels: size - 1 - 1e-5 in double,
+// rounded to f32, as the plain version's clamp.
+inline float border_max(int size) { return static_cast<float>(static_cast<double>(size) - 1.0 - 1e-5); }
 
-  const float gx = grid[2 * bp];
-  const float gy = grid[2 * bp + 1];
+// Top-left corner and the four corner weights of one [-1, 1] point on an
+// H x W level (corners in the order (y, x) = (0, 0), (0, 1), (1, 0), (1, 1)).
+struct Bilinear {
+  int x0, y0;
+  float w[4];
+};
+
+// xmax, ymax: the border clamp of the level, border_max(W) and border_max(H)
+
+__device__ __forceinline__ Bilinear bilinear_corners(float gx, float gy, int H, int W, float xmax, float ymax,
+                                                     int zeros_mode) {
   // _unnormalize (align_corners=False), without FMA contraction
   float x = __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(gx, 1.0f), static_cast<float>(W)), 1.0f), 0.5f);
   float y = __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(gy, 1.0f), static_cast<float>(H)), 1.0f), 0.5f);
@@ -62,34 +80,36 @@ __global__ void bilinear_sample_kernel(const bf16* __restrict__ table, const flo
     y = __fadd_rn(y, 2.0f);
     shift = 2;
   } else {
-    x = fminf(fmaxf(x, 0.0f), static_cast<float>(static_cast<double>(W) - 1.0 - 1e-5));
-    y = fminf(fmaxf(y, 0.0f), static_cast<float>(static_cast<double>(H) - 1.0 - 1e-5));
+    x = fminf(fmaxf(x, 0.0f), xmax);
+    y = fminf(fmaxf(y, 0.0f), ymax);
   }
   const float x0f = floorf(x);
   const float y0f = floorf(y);
   const float wx = __fsub_rn(x, x0f);
   const float wy = __fsub_rn(y, y0f);
-  const int x0 = static_cast<int>(x0f) - shift;
-  const int y0 = static_cast<int>(y0f) - shift;
   const float ux = __fsub_rn(1.0f, wx);
   const float uy = __fsub_rn(1.0f, wy);
-  const float wc[4] = {__fmul_rn(ux, uy), __fmul_rn(wx, uy), __fmul_rn(ux, wy), __fmul_rn(wx, wy)};
+  return {static_cast<int>(x0f) - shift, static_cast<int>(y0f) - shift,
+          {__fmul_rn(ux, uy), __fmul_rn(wx, uy), __fmul_rn(ux, wy), __fmul_rn(wx, wy)}};
+}
 
-  const bf16* base = table + static_cast<long long>(b) * H * W * C + static_cast<long long>(v) * VEC;
-  float acc[VEC];
+// f32 blend of one 16-byte channel vector over the in-image corners;
+// ``base`` points at the vector in row 0 of the point's table, whose
+// H * W * C elements are indexed in 32 bits.
+__device__ __forceinline__ void blend_corners(const bf16* base, const Bilinear& q, int H, int W, int C,
+                                              float (&acc)[8]) {
 #pragma unroll
-  for (int e = 0; e < VEC; ++e) acc[e] = 0.0f;
+  for (int e = 0; e < 8; ++e) acc[e] = 0.0f;
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    const int xi = x0 + (c & 1);
-    const int yi = y0 + (c >> 1);
+    const int xi = q.x0 + (c & 1);
+    const int yi = q.y0 + (c >> 1);
     if (xi < 0 || xi >= W || yi < 0 || yi >= H) continue;
-    float val[VEC];
-    load16(base + (static_cast<long long>(yi) * W + xi) * C, val);
+    float val[8];
+    load16(base + (yi * W + xi) * C, val);
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[e] = __fadd_rn(acc[e], __fmul_rn(val[e], wc[c]));
+    for (int e = 0; e < 8; ++e) acc[e] = __fadd_rn(acc[e], __fmul_rn(val[e], q.w[c]));
   }
-  store16(out + bp * C + static_cast<long long>(v) * VEC, acc);
 }
 
 __device__ __forceinline__ void store8(bf16* p, const float (&v)[8]) { store16(p, v); }
@@ -132,6 +152,52 @@ __global__ void corner_sample_kernel(const bf16* __restrict__ table, const int* 
   store8(out + bp * C + static_cast<long long>(v) * VEC, acc);
 }
 
+constexpr int kMaxLevels = 4;
+
+struct Level {
+  const bf16* table;  // (B, H, W, C)
+  void* out;          // (B, P, C)
+  int H, W, C;
+  float xmax, ymax;   // border_max(W), border_max(H)
+  int shift;          // log2(C / 8) where C / 8 is a power of two, else -1
+  unsigned block0;    // the level's first block along x
+};
+
+struct Levels {
+  Level l[kMaxLevels];  // slots past the last level start past the last block
+};
+
+template <typename OutT>
+__global__ void multilevel_sample_kernel(const Levels lv, const float* __restrict__ grid, unsigned P,
+                                         int zeros_mode) {
+  constexpr int VEC = Vec16<bf16>::N;
+  // the block's level, picked with constant indices so the struct stays
+  // in parameter space
+  Level L = lv.l[0];
+#pragma unroll
+  for (int i = 1; i < kMaxLevels; ++i) {
+    if (blockIdx.x >= lv.l[i].block0) L = lv.l[i];
+  }
+  // the thread's point and vector in batch row blockIdx.y
+  const unsigned t = (blockIdx.x - L.block0) * blockDim.x + threadIdx.x;
+  unsigned p, v;
+  if (L.shift >= 0) {
+    p = t >> L.shift;
+    v = t & ((1u << L.shift) - 1u);
+  } else {
+    const unsigned nvec = static_cast<unsigned>(L.C) / VEC;
+    p = t / nvec;
+    v = t - p * nvec;
+  }
+  if (p >= P) return;
+  const long long b = blockIdx.y;
+  const long long bp = b * P + p;
+  const Bilinear q = bilinear_corners(grid[2 * bp], grid[2 * bp + 1], L.H, L.W, L.xmax, L.ymax, zeros_mode);
+  float acc[VEC];
+  blend_corners(L.table + b * L.H * L.W * L.C + v * VEC, q, L.H, L.W, L.C, acc);
+  store8(static_cast<OutT*>(L.out) + bp * L.C + v * VEC, acc);
+}
+
 }  // namespace coponerf
 
 // table (B, HW, C) bf16, idx (B, P, 4) i32, w (B, P, 4) f32,
@@ -157,17 +223,54 @@ extern "C" int k1_corner_sample(const void* table, const void* idx, const void* 
   return static_cast<int>(cudaGetLastError());
 }
 
-// table (B, H, W, C) bf16, grid (B, P, 2) f32, out (B, P, C) bf16
-extern "C" int k1_bilinear_sample(const void* table, const void* grid, void* out, int B, int H,
-                                  int W, int C, long long P, int zeros_mode, void* stream) {
+// grid (B, P, 2) f32; n_levels tables (B, H_l, W_l, C_l) bf16 (t1-t3 and
+// o1-o3 past n_levels are ignored); out_l (B, P, C_l) f32 (out_f32 = 1) or
+// bf16.  Limits of the 32-bit indexing: B <= 65535, P * C_l / 8 and
+// H_l * W_l * C_l below 2^31.
+extern "C" int k1_multilevel_sample(const void* grid, int n_levels, const void* t0, const void* t1,
+                                    const void* t2, const void* t3, void* o0, void* o1, void* o2,
+                                    void* o3, int H0, int W0, int C0, int H1, int W1, int C1, int H2,
+                                    int W2, int C2, int H3, int W3, int C3, int B, long long P,
+                                    int zeros_mode, int out_f32, void* stream) {
   using coponerf::bf16;
-  const long long total = static_cast<long long>(B) * P * (C / coponerf::Vec16<bf16>::N);
-  if (total == 0) return 0;
+  constexpr long long kLimit = 1LL << 31;
+  if (n_levels < 1 || n_levels > coponerf::kMaxLevels || B > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (B == 0 || P == 0) return 0;
+  const void* tabs[4] = {t0, t1, t2, t3};
+  void* outs[4] = {o0, o1, o2, o3};
+  const int dims[4][3] = {{H0, W0, C0}, {H1, W1, C1}, {H2, W2, C2}, {H3, W3, C3}};
   const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  coponerf::bilinear_sample_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(table), static_cast<const float*>(grid), static_cast<bf16*>(out), B, H,
-      W, C, P, zeros_mode);
+  coponerf::Levels lv{};
+  long long blocks = 0;
+  for (int i = 0; i < coponerf::kMaxLevels; ++i) {
+    const int k = i < n_levels ? i : 0;  // unused slots repeat level 0 and start past the last block
+    const int nvec = dims[k][2] / coponerf::Vec16<bf16>::N;
+    int shift = -1;
+    for (int e = 0; e < 31; ++e) {
+      if ((1 << e) == nvec) shift = e;
+    }
+    lv.l[i] = {static_cast<const bf16*>(tabs[k]), outs[k], dims[k][0], dims[k][1], dims[k][2],
+               coponerf::border_max(dims[k][1]), coponerf::border_max(dims[k][0]), shift,
+               static_cast<unsigned>(blocks)};
+    if (i < n_levels) {
+      const long long per_row = P * nvec;
+      if (per_row >= kLimit || static_cast<long long>(dims[i][0]) * dims[i][1] * dims[i][2] >= kLimit) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      blocks += (per_row + threads - 1) / threads;
+    }
+  }
+  if (blocks >= kLimit) return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  const float* g = static_cast<const float*>(grid);
+  const dim3 nb(static_cast<unsigned>(blocks), static_cast<unsigned>(B));
+  const unsigned p32 = static_cast<unsigned>(P);
+  if (out_f32) {
+    coponerf::multilevel_sample_kernel<float><<<nb, threads, 0, s>>>(lv, g, p32, zeros_mode);
+  } else {
+    coponerf::multilevel_sample_kernel<bf16><<<nb, threads, 0, s>>>(lv, g, p32, zeros_mode);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,9 +9,10 @@ sampling with a joint softmax (inference only), the white overwrite and the
 cycle/depth outputs.  Feature maps are NHWC and render tensors
 (B*V, tokens, C).  Inference callers run under ``torch.no_grad()``.
 
-Fast inference: K1 (``ops.bilinear_sample``) samples every latent level,
-K2 (``ops.split_matmul``) runs W1 with the folded key head, K3
-(``ops.weighted_sum``) takes the attention-weighted sample sums.  Fast
+Fast inference: K8a (``ops.bilinear_sample.multilevel_sample``) samples
+all four latent levels of a sample set in one launch (each level bit for
+bit what K1 gives), K2 (``ops.split_matmul``) runs W1 with the folded key
+head, K3 (``ops.weighted_sum``) takes the attention-weighted sample sums.  Fast
 training: K1 forward and K4 backward (``grid_sample_onehot``) on the
 <=64^2 levels, the 256^2 conv level through ``convmap_sample_pair``, K2
 forward with a plain-product backward.  The exact config samples with the
@@ -45,7 +46,7 @@ from coponerf_tpu_torch.models.lightfield import ResnetFC
 from coponerf_tpu_torch.models.resnet import ResNet34Encoder
 from coponerf_tpu_torch.models.ufc import UFC
 from coponerf_tpu_torch.ops.attn_embed import round1_logits, round2_logits
-from coponerf_tpu_torch.ops.bilinear_sample import bilinear_sample, grid_sample_onehot, grid_sample_tablegrad
+from coponerf_tpu_torch.ops.bilinear_sample import grid_sample_onehot, grid_sample_tablegrad, multilevel_sample
 from coponerf_tpu_torch.ops.convmap_sample import convmap_sample_pair
 from coponerf_tpu_torch.ops.render_core import render_core
 from coponerf_tpu_torch.ops.resize import resize_nchw
@@ -159,7 +160,7 @@ class CoPoNeRF(nn.Module):
         bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=top.dtype, device=top.device)
         rel_pose = torch.cat([top, bottom.expand(B, 1, 4)], dim=1)
 
-        # K1 reads each table as contiguous NHWC rows
+        # K1 and K8a read each table as contiguous NHWC rows
         z = tuple(t.contiguous() for t in (*feat_list, z_conv))
         up = self.cfg.mask_upsample
         _, _, _, mask_bwd = flow_ops.cyclic_consistency_masks(flows[0], flows[1], out_size=up, scale=up / W)
@@ -261,17 +262,17 @@ class CoPoNeRF(nn.Module):
             return z.reshape(B, V, *z.shape[1:]).flip(1).reshape(z.shape)
 
         if smaj:
-            # K1 on every level, bf16 tables and outputs (the consumers are
-            # the bf16 W1 parts); the full-resolution table comes from the
-            # encode-time cast
+            # K8a samples every level of a sample set in one launch, bf16
+            # tables and outputs (the consumers are the bf16 W1 parts); the
+            # full-resolution table comes from the encode-time cast
             tables = [
                 state.z0_bf16 if (state.z0_bf16 is not None and z.shape[1] * z.shape[2] > 4096)
                 else z.to(torch.bfloat16)
                 for z in state.z
             ]
 
-            def sample(z, p, mode):
-                return bilinear_sample(z, p.contiguous(), mode)
+            def sample_levels(zs, p, mode):
+                return multilevel_sample(zs, p.contiguous(), mode)
         else:
             tables = list(state.z)
 
@@ -281,6 +282,9 @@ class CoPoNeRF(nn.Module):
                 if z.shape[1] * z.shape[2] <= 4096 and cfg.train_onehot_small:
                     return grid_sample_onehot(z, p, mode)
                 return grid_sample_tablegrad(z.to(torch.bfloat16), p, mode)
+
+            def sample_levels(zs, p, mode):
+                return [sample(z, p, mode) for z in zs]
 
         # training: the 256^2 conv_map level is sampled through
         # convmap_sample_pair, whose backward goes straight to the conv kernel
@@ -402,7 +406,7 @@ class CoPoNeRF(nn.Module):
         def run_stage(tvals, S_):
             pixel_val = start[:, :, None, :] + (end - start)[:, :, None, :] * tvals[..., None]
             pv_flat = tokf(pixel_val, S_)
-            samples_p = [sample(z, pv_flat, "border") for z in tables]
+            samples_p = sample_levels(tables, pv_flat, "border")
 
             pt, _, _, _ = G.get_3d_point_epipolar(lf_coords, pixel_val, ctx_flat_c2w, H, W, ctx_flat_intr)
             pt_own = G.encode_relative_point(pt, crel_diag)
@@ -412,9 +416,9 @@ class CoPoNeRF(nn.Module):
             )
             px_flat = tokf(px_cross, S_)
             if fusion == "render_core":
-                samples_s = [sample(z, swap_views(px_flat), "zeros") for z in tables]
+                samples_s = sample_levels(tables, swap_views(px_flat), "zeros")
             else:
-                samples_s = [sample(z, px_flat, "zeros") for z in tables_sw]
+                samples_s = sample_levels(tables_sw, px_flat, "zeros")
             if fuse_conv:
                 sp_conv, ss_conv = convmap_sample_pair(
                     rgb_n, self.conv_map.weight, self.conv_map.bias, pv_flat, px_flat,

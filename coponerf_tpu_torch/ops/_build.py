@@ -39,10 +39,10 @@ D = ctypes.c_double
 
 # exported symbol -> argument types (pointers and the stream as c_void_p)
 SIGNATURES = {
-    # table (bf16), grid, out (bf16), B, H, W, C, P, zeros_mode, stream
-    "k1_bilinear_sample": [P, P, P, I, I, I, I, L, I, P],
     # table (bf16), idx, w, out, B, HW, C, P, out_f32, stream
     "k1_corner_sample": [P, P, P, P, I, I, I, L, I, P],
+    # grid, n_levels, 4 tables (bf16), 4 outs, (H, W, C) x 4, B, P, zeros_mode, out_f32, stream
+    "k1_multilevel_sample": [P, I] + [P] * 8 + [I] * 12 + [I, L, I, I, P],
     # p0, p1, p2, pc, pt, W (K, N), bias, fk (N, NK), out, k, rows, K0, Kc, N, NK, dtype, stream
     "k2_split_dense_relu": [P, P, P, P, P, P, P, P, P, P, L, I, I, I, I, I, P],
     # pre, w, out, R, V, S, N, C, dtype, stream

@@ -1,12 +1,21 @@
-"""K1 and K4: bilinear sampling of latent tables and its backward.
+"""K1, K8 and K4: bilinear sampling of latent tables and its backward.
 
 Wrappers around ``csrc/bilinear_sample.cu`` and ``csrc/transpose_sample.cu``:
 
 - ``bilinear_sample`` (K1) replaces
   ``coponerf_tpu/ops/pallas/bilinear_sample.py:onehot_matmul_sample_xy`` (a
-  banded one-hot selection matmul) with a direct 4-corner gather, and also
-  serves the 256^2 level that the JAX package samples with XLA's gather.
-  Tables are bf16; the exact path samples with ``ops/grid_sample.py``.
+  banded one-hot selection matmul) with a direct 4-corner gather: the
+  multi-level entry below with one level, bf16 out.  Tables are bf16; the
+  exact path samples with ``ops/grid_sample.py``.
+- ``multilevel_sample`` (K8a) replaces
+  ``coponerf_tpu/ops/pallas/experimental/multilevel_sample.py:multilevel_banded_sample``:
+  1 to 4 levels sampled at one shared grid in one launch, each level's
+  output bit for bit a one-level launch's.  The fast inference render
+  samples all four latent levels of a sample set with it.
+- ``grid_sample_window`` (K8b) replaces
+  ``experimental/windowed_sample.py:grid_sample_onehot_window`` (the
+  large-table sampler, f32 output by default): the same entry with one
+  level.
 - ``corner_sample`` (K1's second entry) replaces ``onehot_matmul_sample``:
   the same gather from precomputed corner ids and weights (B, P, 4).
 - ``onehot_transpose_matmul`` (K4) replaces the kernel of the same name:
@@ -24,12 +33,15 @@ gradient (flow warps use ``ops/grid_sample.py``).
 
 from __future__ import annotations
 
+from typing import List, Sequence
+
 import torch
 
 from coponerf_tpu_torch.ops import _build
 from coponerf_tpu_torch.ops.grid_sample import grid_sample, pixel_xy
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_LEVELS = 4
 
 
 def _kernel_device(t: torch.Tensor) -> bool:
@@ -39,6 +51,52 @@ def _kernel_device(t: torch.Tensor) -> bool:
     if t.device.type != "cuda":
         raise ValueError(f"no kernel for device {t.device}")
     return True
+
+
+def _check_xy_args(tables: Sequence[torch.Tensor], grid: torch.Tensor, padding_mode: str,
+                   out_dtype: torch.dtype) -> bool:
+    """The xy samplers' argument checks; True where the kernel runs."""
+    if padding_mode not in ("border", "zeros"):
+        raise ValueError(f"unsupported padding_mode: {padding_mode}")
+    if out_dtype not in _DTYPES:
+        raise TypeError(f"unsupported out_dtype {out_dtype}")
+    for t in tables:
+        if t.dim() != 4 or grid.shape[0] != t.shape[0] or grid.shape[-1] != 2:
+            raise ValueError(f"bad shapes: table {tuple(t.shape)}, grid {tuple(grid.shape)}")
+        if t.device != grid.device:
+            raise ValueError("tables and grid must be on the same device")
+        if t.dtype != torch.bfloat16 or grid.dtype != torch.float32:
+            raise TypeError(f"unsupported dtypes: table {t.dtype} (bf16 only), grid {grid.dtype} (f32 only)")
+    if not _kernel_device(grid):
+        return False
+    for t in tables:
+        if t.shape[-1] % 8:
+            raise ValueError(f"channel rows must be a multiple of 16 bytes (8 bf16), got C={t.shape[-1]}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("tables must be contiguous and 16-byte aligned")
+    if not grid.is_contiguous():
+        raise ValueError("grid must be contiguous")
+    return True
+
+
+def _launch_levels(tables: Sequence[torch.Tensor], grid: torch.Tensor, padding_mode: str,
+                   out_dtype: torch.dtype) -> List[torch.Tensor]:
+    """One ``k1_multilevel_sample`` launch over ``tables``; it refuses a
+    batch over 65535 rows or a level of 2^31 or more elements (points x C,
+    or H x W x C) a row."""
+    n = len(tables)
+    B, batch_shape = grid.shape[0], grid.shape[:-1]
+    P = grid[0].numel() // 2
+    outs = [torch.empty((B, P, t.shape[-1]), dtype=out_dtype, device=grid.device) for t in tables]
+    pad = [tables[0]] * (_MAX_LEVELS - n)
+    dims = [d for t in list(tables) + pad for d in t.shape[1:]]
+    code = _build.lib().k1_multilevel_sample(
+        grid.data_ptr(), n, *(t.data_ptr() for t in list(tables) + pad),
+        *(o.data_ptr() for o in outs + [outs[0]] * (_MAX_LEVELS - n)), *dims, B, P,
+        int(padding_mode == "zeros"), int(out_dtype == torch.float32), _build.stream_of(grid),
+    )
+    _build.check(code, "k1_multilevel_sample")
+    return [o.reshape(*batch_shape, o.shape[-1]) for o in outs]
 
 
 # --------------------------------------------------------------- K1 (xy) --
@@ -51,37 +109,62 @@ def bilinear_sample_plain(image: torch.Tensor, grid: torch.Tensor, padding_mode:
 def bilinear_sample(image: torch.Tensor, grid: torch.Tensor, padding_mode: str) -> torch.Tensor:
     """Sample ``image`` (B, H, W, C) at [-1, 1] ``grid`` (B, ..., 2) with
     ``border`` or ``zeros`` padding (align_corners=False) -> (B, ..., C)
-    bf16.  ``image`` is bf16, ``grid`` f32."""
-    if padding_mode not in ("border", "zeros"):
-        raise ValueError(f"unsupported padding_mode: {padding_mode}")
-    if image.dim() != 4 or grid.shape[0] != image.shape[0] or grid.shape[-1] != 2:
-        raise ValueError(f"bad shapes: image {tuple(image.shape)}, grid {tuple(grid.shape)}")
-    if image.device != grid.device:
-        raise ValueError("image and grid must be on the same device")
-    if image.dtype != torch.bfloat16 or grid.dtype != torch.float32:
-        raise TypeError(f"unsupported dtypes: image {image.dtype} (bf16 only), grid {grid.dtype} (f32 only)")
-    if not _kernel_device(image):
+    bf16.  ``image`` is bf16, ``grid`` f32.  The multi-level entry with one
+    level."""
+    if not _check_xy_args([image], grid, padding_mode, torch.bfloat16):
         return bilinear_sample_plain(image, grid, padding_mode)
-    B, H, W, C = image.shape
-    if C % 8:
-        raise ValueError(f"channel rows must be a multiple of 16 bytes (8 bf16), got C={C}")
-    if not (image.is_contiguous() and grid.is_contiguous()):
-        raise ValueError("image and grid must be contiguous")
-    if image.data_ptr() % 16:
-        raise ValueError("image must be 16-byte aligned")
-    batch_shape = grid.shape[:-1]
-    P = grid[0].numel() // 2
-    out = torch.empty((B, P, C), dtype=image.dtype, device=image.device)
-    code = _build.lib().k1_bilinear_sample(
-        image.data_ptr(), grid.data_ptr(), out.data_ptr(), B, H, W, C, P,
-        int(padding_mode == "zeros"), _build.stream_of(image),
-    )
-    _build.check(code, "k1_bilinear_sample")
+    (out,) = _launch_levels([image], grid, padding_mode, torch.bfloat16)
     bilinear_sample.launches += 1
-    return out.reshape(*batch_shape, C)
+    return out
 
 
 bilinear_sample.launches = 0
+
+
+# ------------------------------------------------------------------- K8 --
+
+def multilevel_sample_plain(tables: Sequence[torch.Tensor], grid: torch.Tensor, padding_mode: str,
+                            out_dtype: torch.dtype = torch.bfloat16) -> List[torch.Tensor]:
+    """Plain PyTorch version: the exact gather of each level."""
+    return [grid_sample(t, grid, padding_mode, out_dtype=out_dtype) for t in tables]
+
+
+def multilevel_sample(tables: Sequence[torch.Tensor], grid: torch.Tensor, padding_mode: str,
+                      out_dtype: torch.dtype = torch.bfloat16) -> List[torch.Tensor]:
+    """Sample 1 to 4 tables (B, H_l, W_l, C_l) bf16 at one [-1, 1] ``grid``
+    (B, ..., 2) f32 -> one contiguous (B, ..., C_l) ``out_dtype`` tensor a
+    level, in one launch.  Padding and arithmetic as ``bilinear_sample``."""
+    if not 1 <= len(tables) <= _MAX_LEVELS:
+        raise ValueError(f"1 to {_MAX_LEVELS} levels, got {len(tables)}")
+    if not _check_xy_args(tables, grid, padding_mode, out_dtype):
+        return multilevel_sample_plain(tables, grid, padding_mode, out_dtype)
+    outs = _launch_levels(tables, grid, padding_mode, out_dtype)
+    multilevel_sample.launches += 1
+    return outs
+
+
+multilevel_sample.launches = 0
+
+
+def grid_sample_window_plain(image: torch.Tensor, grid: torch.Tensor, padding_mode: str = "zeros",
+                             out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain PyTorch version: the exact gather."""
+    return grid_sample(image, grid, padding_mode, out_dtype=out_dtype)
+
+
+def grid_sample_window(image: torch.Tensor, grid: torch.Tensor, padding_mode: str = "zeros",
+                       out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Sample one large table ``image`` (B, H, W, C) bf16 at [-1, 1] ``grid``
+    (B, ..., 2) f32 -> (B, ..., C) in ``out_dtype`` (f32 by default): the
+    multi-level entry with one level."""
+    if not _check_xy_args([image], grid, padding_mode, out_dtype):
+        return grid_sample_window_plain(image, grid, padding_mode, out_dtype)
+    (out,) = _launch_levels([image], grid, padding_mode, out_dtype)
+    grid_sample_window.launches += 1
+    return out
+
+
+grid_sample_window.launches = 0
 
 
 # ------------------------------------------------------ corner ids, weights --

@@ -43,3 +43,12 @@ def restore_into(state, path: str):
     for k in _COUNTERS:
         setattr(state, k, int(payload[k]))
     return state
+
+
+def load_weights(model, path: str):
+    """Load the weights and BatchNorm buffers of a checkpoint written by
+    ``save`` into ``model`` (strict) and return it: what evaluation needs."""
+    device = next(model.parameters()).device
+    payload = torch.load(path, map_location=device, weights_only=True)
+    model.load_state_dict(payload["model"], strict=True)
+    return model

@@ -1,8 +1,10 @@
 """The port runs without JAX: an inference render (also with both
-``render(fusion=...)`` options) and a train step, the latter also with
-``fused_argmax=True``, load no module of ``jax``, ``flax`` or the JAX
-package ``coponerf_tpu``.  On CPU tensors its kernel wrappers take the plain
-versions without counting a launch."""
+``render(fusion=...)`` options), a train step, the latter also with
+``fused_argmax=True``, the evaluation layer (harness, metrics, overlap,
+scene readers, loader, the ``test`` entry) and the sampler bench load no
+module of ``jax``, ``flax`` or the JAX package ``coponerf_tpu``.  On CPU
+tensors its kernel wrappers take the plain versions without counting a
+launch."""
 
 import dataclasses
 import os
@@ -15,7 +17,8 @@ from coponerf_tpu_torch.config import ModelConfig
 from coponerf_tpu_torch.data.synthetic import make_batch
 from coponerf_tpu_torch.models import CoPoNeRF, batch_to_torch
 from coponerf_tpu_torch.ops.attn_embed import round1_logits, round2_logits
-from coponerf_tpu_torch.ops.bilinear_sample import bilinear_sample, corner_sample, onehot_transpose_matmul
+from coponerf_tpu_torch.ops.bilinear_sample import (bilinear_sample, corner_sample, grid_sample_window,
+                                                    multilevel_sample, onehot_transpose_matmul)
 from coponerf_tpu_torch.ops.render_core import render_core
 from coponerf_tpu_torch.ops.soft_argmax import soft_argmax_bwd, soft_argmax_stats
 from coponerf_tpu_torch.ops.split_matmul import split_dense_relu
@@ -32,7 +35,12 @@ import sys
 import torch
 torch.set_num_threads(2)
 import coponerf_tpu_torch
+import coponerf_tpu_torch.test
+import coponerf_tpu_torch.bench_sampler
 from coponerf_tpu_torch.config import Config, LossConfig, ModelConfig, TrainConfig
+from coponerf_tpu_torch.data import acid, loader, realestate, scene_dataset
+from coponerf_tpu_torch.eval import harness, metrics, overlap
+from coponerf_tpu_torch.utils import cli
 from coponerf_tpu_torch.data.synthetic import make_batch
 from coponerf_tpu_torch.models import CoPoNeRF, batch_to_torch
 from coponerf_tpu_torch.training import trainer
@@ -52,6 +60,11 @@ with torch.no_grad():
     single.load_state_dict(model.state_dict())
     out = single.render(tb, state, val=False, fusion="render_core")
     assert torch.isfinite(out["rgb"]).all()
+eb, eg = make_batch(batch_size=1, image_size=32, n_rays=32 * 32, seed=2, full_query_image=True)
+item = ({k: {kk: vv[0] for kk, vv in v.items()} for k, v in eb.items()}, {k: v[0] for k, v in eg.items()}, 1.0)
+acc = harness.evaluate(model, [item], batch_size=1, chunk=512, image_size=32, verbose=False)
+assert len(acc.metrics["all"]["psnr"]) == 1
+assert overlap.compute_overlap_table(model, [item]).shape == (1, 1)
 tcfg = Config(model=cfg, loss=LossConfig(pose=True, cycle=True, ssim=True), train=TrainConfig(lr=1e-4))
 state = trainer.create_train_state(tcfg, 32, "cpu", model=model)
 metrics = trainer.train_step(state, batch_to_torch(make_batch(batch_size=2, image_size=32, n_rays=8, seed=1)[0], "cpu"), tcfg)
@@ -81,14 +94,16 @@ def test_cpu_tensors_take_the_plain_versions():
     """Inference (unfused and with both fusions) and a train-mode forward
     and backward on CPU tensors, the latter also with ``fused_argmax=True``,
     leave every kernel's launch count at zero (K1 and its corner-id entry,
-    K2, K3, K4, K5's forward and backward, K6, K7's two rounds)."""
+    K2, K3, K4, K5's forward and backward, K6, K7's two rounds, K8a and
+    K8b)."""
     cfg = ModelConfig(mask_upsample=32, npoints=4, ufc_layer_nums=(1, 1, 1), fast_sampling=True,
                       compute_dtype="bfloat16", coarse_samples=4, fine_samples=2)
     batch, _ = make_batch(batch_size=1, image_size=32, n_rays=8, seed=1)
     model = init_weights(CoPoNeRF(cfg, image_size=32).eval(), seed=1)
     tb = batch_to_torch(batch, "cpu")
     counters = (bilinear_sample, corner_sample, split_dense_relu, weighted_sum_smaj, onehot_transpose_matmul,
-                soft_argmax_stats, soft_argmax_bwd, round1_logits, round2_logits, render_core)
+                soft_argmax_stats, soft_argmax_bwd, round1_logits, round2_logits, render_core, multilevel_sample,
+                grid_sample_window)
     before = tuple(c.launches for c in counters)
     with torch.no_grad():
         state = model.encode(tb)
@@ -108,4 +123,4 @@ def test_cpu_tensors_take_the_plain_versions():
     (out["rgb"].sum() + out["flow"][0].square().sum()).backward()
     assert fused.feature_cost_aggregation.proj_feat_0.Dense_0.weight.grad is not None
     after = tuple(c.launches for c in counters)
-    assert before == after == (0,) * 10
+    assert before == after == (0,) * 12
