@@ -17,8 +17,10 @@ result line:
      render levels at stage A's 16 x 32768 points of both sample sets, bit
      for bit against its plain version and the four one-level launches it
      replaces and timed in turns with them; K8b (grid_sample_window) on the
-     256^2 level in f32; K2 at 524288 tokens in bf16 plus
-     one f32 case, K3 at N=32768, S=16, V=2, and K4 on the three small
+     256^2 level in f32; K2 at every row count the paths launch (bf16:
+     1048576, 262144, 4194304, 147456 and a ragged 1048539; f32, the
+     exact path: 524288), its library call also timed on an input
+     zero-padded to K = 840; K3 at N=32768, S=16, V=2, and K4 on the three small
      levels in both padding modes (training: 12 rows x 12288 points, C=256),
      and K5's forward statistics and backward on cosine-like correlation
      volumes at the train shape (B 6, Q = S = 4096) and the inference shape
@@ -53,7 +55,10 @@ result line:
      pair with a turned query camera whose pruned render skips a chunk and
      scatters back (rgb against the unpruned render to 1e-5, metrics to
      1e-6), and the harness's assembled rgb against a direct chunked render,
-     bit for bit; one pair's evaluation is profiled;
+     bit for bit; one pair's evaluation is profiled; then one pair through
+     evaluate in the test entry's default exact config (f32, fast_sampling
+     off, S 64, 4096-ray chunks): ms/image, metrics, and K2's f32 kernel
+     twice a chunk, no other kernel;
   5. one 1024-ray chunk rendered on the card and on the CPU (where the plain
      versions run) from the same SceneState and weights, unfused, with
      fusion="attn_embed" (cf[16, 4]) and with fusion="render_core" (single
@@ -96,6 +101,7 @@ REPLACES = {
     "bilinear_sample": "coponerf_tpu/ops/pallas/bilinear_sample.py:177",
     "corner_sample": "coponerf_tpu/ops/pallas/bilinear_sample.py:346",
     "split_dense_relu": "coponerf_tpu/ops/pallas/split_matmul.py:46",
+    "split_dense_relu_f32": "coponerf_tpu/ops/pallas/split_matmul.py:46",
     "weighted_sum_smaj": "coponerf_tpu/ops/pallas/weighted_sum.py:68",
     "onehot_transpose_matmul": "coponerf_tpu/ops/pallas/bilinear_sample.py:458",
     "soft_argmax_stats": "coponerf_tpu/ops/pallas/soft_argmax.py:132",
@@ -110,6 +116,7 @@ SOURCES = {
     "bilinear_sample": "coponerf_tpu_torch/csrc/bilinear_sample.cu",
     "corner_sample": "coponerf_tpu_torch/csrc/bilinear_sample.cu",
     "split_dense_relu": "coponerf_tpu_torch/csrc/split_matmul.cu",
+    "split_dense_relu_f32": "coponerf_tpu_torch/csrc/split_matmul.cu",
     "weighted_sum_smaj": "coponerf_tpu_torch/csrc/weighted_sum.cu",
     "onehot_transpose_matmul": "coponerf_tpu_torch/csrc/transpose_sample.cu",
     "soft_argmax_stats": "coponerf_tpu_torch/csrc/soft_argmax.cu",
@@ -183,6 +190,20 @@ def errors(got: torch.Tensor, ref: torch.Tensor):
     return d.max().item(), (d.mean() / (ref.abs().mean() + 1e-6)).item(), (d.max() / (ref.abs().max() + 1e-6)).item()
 
 
+def errors_by_rows(got: torch.Tensor, ref: torch.Tensor, rows: int = 1 << 20):
+    """``errors`` of (..., C) tensors taken over blocks of rows, so that the
+    f32 copies of a multi-GB output stay small."""
+    got, ref = got.reshape(-1, got.shape[-1]), ref.reshape(-1, ref.shape[-1])
+    mx = total = ref_sum = ref_max = 0.0
+    for lo in range(0, got.shape[0], rows):
+        g, r = got[lo: lo + rows].float(), ref[lo: lo + rows].float()
+        d = (g - r).abs()
+        mx, total = max(mx, d.max().item()), total + d.sum().item()
+        ref_sum, ref_max = ref_sum + r.abs().sum().item(), max(ref_max, r.abs().max().item())
+    n = got.numel()
+    return mx, (total / n) / (ref_sum / n + 1e-6), mx / (ref_max + 1e-6)
+
+
 def epipolar_grid(n_rays: int, S: int, shift: float, gen: torch.Generator, dev) -> torch.Tensor:
     """Sample-major (2, S*n_rays, 2) [-1, 1] points laid out as the render
     lays them: token s*N + n on ray n's segment, rays in raster order, so
@@ -207,11 +228,10 @@ def train_grid(rows: int, n_rays: int, S: int, shift: float, gen: torch.Generato
     return (start + (end - start) * t).reshape(rows, n_rays * S, 2).contiguous()
 
 
-def phase_kernels(dev, summary):
+def phase_kernels(dev, summary, card: str):
     import torch.nn.functional as F
 
     from coponerf_tpu_torch.ops import bilinear_sample as bs
-    from coponerf_tpu_torch.ops.split_matmul import split_dense_relu, split_dense_relu_plain
     from coponerf_tpu_torch.ops.weighted_sum import weighted_sum_plain, weighted_sum_smaj
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -273,40 +293,7 @@ def phase_kernels(dev, summary):
     summary["corner_sample"] = dict(max_abs_err=mx, ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bms, bound_by=bby)
     del table, flat, rows, psw
 
-    # K2: stage A's W1 (T = 16 x 32768 tokens per view row) in bf16, and f32
-    W = torch.randn(835, 832, device=dev, generator=gen) / 835 ** 0.5
-    bias = torch.randn(832, device=dev, generator=gen) * 0.1
-    fk = torch.randn(832, 128, device=dev, generator=gen) / 832 ** 0.5
-    for dtype, T in ((torch.bfloat16, 16 * CHUNK), (torch.float32, 4 * CHUNK)):
-        parts = [torch.randn(2, T, w_, device=dev, generator=gen).to(dtype) for w_ in (256, 256, 256, 64)]
-        parts.append(torch.tanh(torch.randn(2, T, 3, device=dev, generator=gen)).to(dtype))
-        with torch.no_grad():
-            out, k = split_dense_relu(parts, W, bias, fk)
-            pout, pk = split_dense_relu_plain(parts, W, bias, fk)
-        tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
-        e_out, e_k = errors(out, pout), errors(k, pk)
-        good = e_out[2] < tol and e_k[2] < tol
-        ok &= good
-        with torch.no_grad():
-            ms = cuda_ms(lambda: split_dense_relu(parts, W, bias, fk))
-            pms = cuda_ms(lambda: split_dense_relu_plain(parts, W, bias, fk), reps=3, inner=1)
-            x = torch.cat(parts, dim=-1).reshape(-1, 835)
-            Wd, bd, fkd = W.to(dtype), bias.to(dtype), fk.to(dtype)
-            lms = cuda_ms(lambda: torch.matmul(torch.relu(torch.addmm(bd, x, Wd)), fkd))
-        M = 2 * T
-        flops = 2 * M * (835 * 832 + 832 * 128)
-        esz = 2 if dtype == torch.bfloat16 else 4
-        nbytes = M * 835 * esz + (835 * 832 + 832 * 128) * esz + 832 * 4 + M * (832 + 128) * esz
-        bms, bby = bound(nbytes, flops, BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
-        tflops = flops / (ms * 1e-3) / 1e12
-        log(f"[kernels] K2 split_dense_relu {str(dtype)[6:]} T={T}: out max_abs {e_out[0]:.3e} rel {e_out[2]:.3e}, "
-            f"k max_abs {e_k[0]:.3e} rel {e_k[2]:.3e} (bound max-rel {tol:g}) {'ok' if good else 'FAIL'}; "
-            f"kernel {ms:.3f} ms ({tflops:.1f} TFLOP/s), plain {pms:.3f} ms, addmm+relu+matmul {lms:.3f} ms, "
-            f"bound {bms:.3f} ms ({bby})")
-        if dtype == torch.bfloat16:
-            summary["split_dense_relu"] = dict(max_abs_err=max(e_out[0], e_k[0]), ms=ms, plain_ms=pms,
-                                               library_ms=lms, bound_ms=bms, bound_by=bby)
-        del parts, out, k, pout, pk, x
+    ok &= phase_split_dense(dev, summary, gen, card)
 
     # K3: one stage-A weighted sum with the view fold
     S, N = 16, CHUNK
@@ -372,6 +359,71 @@ def phase_kernels(dev, summary):
     ok &= phase_fusion_kernels(dev, summary, gen)
     if not ok:
         raise RuntimeError("a kernel disagrees with its plain version")
+
+
+# K2's row counts: every shape the paths launch (bf16: cf[16,4] stage A and
+# B, single stage and evaluation, the train step, and stage A less 37 rows,
+# a ragged last tile), and the exact path's f32 call (the test entry's
+# default: chunk 4096, S 64, 2 view rows)
+K2_CASES = (("stage A", torch.bfloat16, 1048576), ("stage B", torch.bfloat16, 262144),
+            ("single stage / eval", torch.bfloat16, 4194304), ("train step", torch.bfloat16, 147456),
+            ("stage A - 37 (ragged)", torch.bfloat16, 1048576 - 37), ("exact eval", torch.float32, 524288))
+
+
+def phase_split_dense(dev, summary, gen, card: str) -> bool:
+    """K2 at every row count in K2_CASES against its plain version (bf16
+    max-rel 1e-2, f32 1e-4), timed beside its plain version, the library
+    call that computes the same function (addmm + relu + matmul on the
+    concatenated input) and, for information, that call on the input
+    zero-padded to K = 840 (16-byte rows).  Stage A goes to the summary as
+    split_dense_relu, the f32 case as split_dense_relu_f32."""
+    from coponerf_tpu_torch.ops.split_matmul import split_dense_relu, split_dense_relu_plain
+
+    ok = True
+    W = torch.randn(835, 832, device=dev, generator=gen) / 835 ** 0.5
+    bias = torch.randn(832, device=dev, generator=gen) * 0.1
+    fk = torch.randn(832, 128, device=dev, generator=gen) / 832 ** 0.5
+    for label, dtype, M in K2_CASES:
+        parts = [torch.randn(1, M, w_, device=dev, generator=gen).to(dtype) for w_ in (256, 256, 256, 64)]
+        parts.append(torch.tanh(torch.randn(1, M, 3, device=dev, generator=gen)).to(dtype))
+        with torch.no_grad():
+            out, k = split_dense_relu(parts, W, bias, fk)
+            pout, pk = split_dense_relu_plain(parts, W, bias, fk)
+            tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+            e_out, e_k = errors_by_rows(out, pout), errors_by_rows(k, pk)
+            del out, k, pout, pk
+            good = e_out[2] < tol and e_k[2] < tol
+            ok &= good
+            ms = cuda_ms(lambda: split_dense_relu(parts, W, bias, fk))
+            pms = cuda_ms(lambda: split_dense_relu_plain(parts, W, bias, fk), reps=3, inner=1)
+            Wd, bd, fkd = W.to(dtype), bias.to(dtype), fk.to(dtype)
+            x = torch.cat(parts, dim=-1).reshape(-1, 835)
+            lms = cuda_ms(lambda: torch.matmul(torch.relu(torch.addmm(bd, x, Wd)), fkd))
+            x = torch.nn.functional.pad(x, (0, 5))
+            Wp = torch.nn.functional.pad(Wd, (0, 0, 0, 5))
+            lms_pad = cuda_ms(lambda: torch.matmul(torch.relu(torch.addmm(bd, x, Wp)), fkd))
+            del x, Wp
+        flops = 2 * M * (835 * 832 + 832 * 128)
+        esz = 2 if dtype == torch.bfloat16 else 4
+        nbytes = M * 835 * esz + (835 * 832 + 832 * 128) * esz + 832 * 4 + M * (832 + 128) * esz
+        bms, bby = bound(nbytes, flops, BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+        tflops = flops / (ms * 1e-3) / 1e12
+        log(f"[kernels] K2 split_dense_relu {str(dtype)[6:]} {label} M={M}: out max_abs {e_out[0]:.3e} rel "
+            f"{e_out[2]:.3e}, k max_abs {e_k[0]:.3e} rel {e_k[2]:.3e} (bound max-rel {tol:g}) "
+            f"{'ok' if good else 'FAIL'}; kernel {ms:.3f} ms ({tflops:.1f} TFLOP/s, {bms / ms:.3f} of the bound), "
+            f"plain {pms:.3f} ms, addmm+relu+matmul {lms:.3f} ms, bound {bms:.3f} ms ({bby}) [{card}]")
+        log(f"[kernels] K2 {str(dtype)[6:]} {label}: for information, addmm+relu+matmul on the input zero-padded "
+            f"to K = 840: {lms_pad:.3f} ms (unpadded {lms:.3f} ms)")
+        entry = dict(max_abs_err=max(e_out[0], e_k[0]), ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+                     bound_by=bby)
+        if label == "stage A":
+            summary["split_dense_relu"] = entry
+        elif dtype == torch.float32:
+            summary["split_dense_relu_f32"] = entry
+        del parts
+        torch.cuda.empty_cache()
+    return ok
+
 
 
 def phase_multilevel(dev, summary, gen) -> bool:
@@ -785,6 +837,40 @@ def phase_eval(model, dev, card: str, count, launches) -> None:
         raise RuntimeError("the harness's assembled image differs from the direct render")
 
 
+def phase_eval_exact(dev, card: str, count, launches) -> None:
+    """One synthetic pair through ``evaluate`` in the test entry's default
+    config: exact (f32, fast_sampling off), one stage of S 64, 4096-ray
+    chunks, batch 1, from the same seeded weights.  Its W1 is K2's f32
+    kernel, two launches a chunk; no other kernel of the port runs."""
+    import warnings
+
+    from coponerf_tpu_torch.config import ModelConfig
+    from coponerf_tpu_torch.eval.harness import evaluate
+    from coponerf_tpu_torch.models import CoPoNeRF
+    from coponerf_tpu_torch.utils.init import init_weights
+
+    chunk = 4096
+    model = init_weights(CoPoNeRF(ModelConfig(fast_sampling=False, compute_dtype="float32"), image_size=IMAGE)
+                         .eval(), seed=0).to(dev)
+    ds = PairSet((0,))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")      # no LPIPS weights: the column is absent
+        run = lambda: evaluate(model, ds, batch_size=1, chunk=chunk, image_size=IMAGE, verbose=False)
+        run()                                # warm-up
+        m = count("eval_exact", run).metrics["all"]
+    keys = ("psnr", "ssim", "rot", "trans", "angle_trans")
+    rps = m["rays_per_sec"][0]
+    log(f"[eval] eval_exact (f32, chunk {chunk}, S 64) pair 0: {IMAGE * IMAGE / rps * 1e3:.1f} ms/image encode + "
+        f"render ({rps:.0f} rays/s), " + ", ".join(f"{k} {m[k][0]:.6g}" for k in keys) + f" [{card}]")
+    expected = dict.fromkeys(KERNELS, 0)
+    expected.update(split_dense_relu_f32=2 * IMAGE * IMAGE // chunk)
+    log(f"[eval] eval_exact kernel launches: {launches['eval_exact']} (expected {expected})")
+    if not all(np.isfinite(v) for k in keys + ("rays_per_sec",) for v in m[k]):
+        raise RuntimeError(f"eval_exact: bad metrics {dict(m)}")
+    if launches["eval_exact"] != expected:
+        raise RuntimeError("the exact evaluation did not run W1 through K2's f32 kernel as expected")
+
+
 def sparse_pair(model, dev, count, launches) -> None:
     """Seed 0's pair with the query camera turned by the first of 60, 90,
     120, 150 and 180 degrees at which at most 32768 of its 65536 rays are
@@ -870,7 +956,7 @@ def main() -> int:
     log(f"[build] kernels ready in {time.perf_counter() - t0:.1f} s (nvcc {_build.build_seconds or 0:.1f} s; {_build.library_path()})")
 
     summary = {}
-    phase_kernels(dev, summary)
+    phase_kernels(dev, summary, card)
     torch.cuda.empty_cache()
     counters = {"bilinear_sample": bilinear_sample, "corner_sample": corner_sample,
                 "split_dense_relu": split_dense_relu, "weighted_sum_smaj": weighted_sum_smaj,
@@ -878,15 +964,20 @@ def main() -> int:
                 "soft_argmax_bwd": soft_argmax_bwd, "round1_logits": round1_logits,
                 "round2_logits": round2_logits, "render_core": render_core,
                 "multilevel_sample": multilevel_sample, "grid_sample_window": grid_sample_window}
-    assert set(counters) == set(KERNELS)
+    assert set(counters) | {"split_dense_relu_f32"} == set(KERNELS)
     launches = {}
 
     def count(path: str, fn):
-        """Run ``fn`` with every launch count set to 0 and keep the counts."""
+        """Run ``fn`` with every launch count set to 0 and keep the counts
+        (K2's wrapper counts its f32 kernel's launches apart)."""
         for c in counters.values():
             c.launches = 0
+        split_dense_relu.f32_launches = 0
         result = fn()
-        launches[path] = {k: c.launches for k, c in counters.items()}
+        got = {k: c.launches for k, c in counters.items()}
+        got["split_dense_relu_f32"] = split_dense_relu.f32_launches
+        got["split_dense_relu"] -= split_dense_relu.f32_launches
+        launches[path] = {k: got[k] for k in KERNELS}
         return result
 
     # 4. the inference path
@@ -1045,6 +1136,7 @@ def main() -> int:
         profile_step(lambda: render_request(m, fusion, se), card, label)
     torch.cuda.empty_cache()
     phase_eval(smodel, dev, card, count, launches)
+    phase_eval_exact(dev, card, count, launches)
 
     # 5. the same chunk on the card and on the CPU (plain versions): unfused
     # and fused in cf[16, 4], and K6 in the single-stage config

@@ -1,6 +1,7 @@
-"""Times the port's bilinear samplers and the fast train step on one card.
+"""Times the port's kernels at the main paths' shapes, a render, an
+evaluation image and the fast train step on one card.
 
-    python -m coponerf_tpu_torch.bench_sampler [--steps 5]
+    python -m coponerf_tpu_torch.bench_kernels [--steps 5]
 
 Prints one JSON line with:
 - ``train_k1``: ``bilinear_sample`` (K1) at the training shape, ms per call
@@ -9,14 +10,27 @@ Prints one JSON line with:
 - ``stage_a``: per sample set of inference stage A (2 view rows, 16 x
   32768 points, the four render levels), ``multilevel_sample`` (K8a, one
   launch) and the four one-level ``bilinear_sample`` calls, in turns;
+- ``split_dense_relu``: K2 (``split_dense_relu``) at stage A (bf16,
+  1,048,576 rows), the exact evaluation's shape (f32, 524,288 rows) and
+  the train step's (bf16, 147,456 rows), ms per call;
+- ``render_cf16_4_ms``: one 256^2 request in the fast config (cf[16,4],
+  two 32768-ray chunks, encode excluded), ms per image;
+- ``eval_single_stage_ms`` and ``eval_exact_ms``: one synthetic 256^2 pair
+  through ``eval.harness.evaluate`` in the test entry's fast config
+  (single stage, S 64, 32768-ray chunks) and in its default exact config
+  (f32, 4096-ray chunks), encode plus render ms per image;
 - ``train_step``: the fast-config train step at batch 6 x 256^2 pairs
   (pose + cycle + SSIM), the host-clock ms of each timed step, and one
   step's device kernel time under ``torch.profiler``, in all and in the
   sampler's kernels.
 
 Kernel times are CUDA events around 10 back-to-back calls, the median of 5
-such windows.  Run it in two checkouts of the repo in turns on one card
-(A, B, B, A) to compare them: it uses only entry points both have.
+such windows; the render and the evaluations are host-clock times up to
+``torch.cuda.synchronize()`` after a warm-up call, the median of three
+(the exact evaluation: one).  Run it in two checkouts of the repo in turns
+on one card (A, B, B, A) to compare them: it uses only entry points both
+have (the samplers, ``split_dense_relu``, ``encode``, ``render``,
+``evaluate`` and ``train_step``).
 """
 
 from __future__ import annotations
@@ -26,6 +40,7 @@ import json
 import statistics
 import time
 
+import numpy as np
 import torch
 
 IMAGE = 256
@@ -94,6 +109,80 @@ def time_samplers(dev) -> dict:
     return out
 
 
+def time_split_dense(dev) -> dict:
+    from coponerf_tpu_torch.ops.split_matmul import split_dense_relu
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    W = torch.randn(835, 832, device=dev, generator=gen) / 835 ** 0.5
+    bias = torch.randn(832, device=dev, generator=gen) * 0.1
+    fk = torch.randn(832, 128, device=dev, generator=gen) / 832 ** 0.5
+    out = {}
+    for label, dtype, M in (("stage_a_bf16", torch.bfloat16, 1048576), ("exact_f32", torch.float32, 524288),
+                            ("train_bf16", torch.bfloat16, TRAIN_ROWS * TRAIN_RAYS * 64)):
+        parts = [torch.randn(1, M, w, device=dev, generator=gen).to(dtype) for w in (256, 256, 256, 64)]
+        parts.append(torch.tanh(torch.randn(1, M, 3, device=dev, generator=gen)).to(dtype))
+        with torch.no_grad():
+            (out[label],) = cuda_ms_in_turns([lambda: split_dense_relu(parts, W, bias, fk)])
+        del parts
+        torch.cuda.empty_cache()
+    return out
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Median host-clock ms of ``fn`` up to ``torch.cuda.synchronize()``, after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def time_render_and_eval(dev) -> dict:
+    import dataclasses
+    import warnings
+
+    from coponerf_tpu_torch.config import ModelConfig
+    from coponerf_tpu_torch.data.synthetic import make_batch
+    from coponerf_tpu_torch.eval.harness import evaluate
+    from coponerf_tpu_torch.models import CoPoNeRF, batch_to_torch
+    from coponerf_tpu_torch.utils.init import init_weights
+
+    cfg = ModelConfig(fast_sampling=True, compute_dtype="bfloat16", coarse_samples=16, fine_samples=4)
+    model = init_weights(CoPoNeRF(cfg, image_size=IMAGE).eval(), seed=0).to(dev)
+    b, g = make_batch(batch_size=1, image_size=IMAGE, n_rays=IMAGE * IMAGE, seed=0, full_query_image=True)
+    batch = batch_to_torch(b, dev)
+    with torch.no_grad():
+        state = model.encode(batch)
+
+        def render():
+            for lo in range(0, IMAGE * IMAGE, CHUNK):
+                q = dict(batch["query"], uv=batch["query"]["uv"][:, :, lo: lo + CHUNK],
+                         rgb=batch["query"]["rgb"][:, :, lo: lo + CHUNK])
+                model.render({"context": batch["context"], "query": q}, state, val=True)
+
+        render_ms = host_ms(render)
+    single = CoPoNeRF(dataclasses.replace(cfg, coarse_samples=0, fine_samples=0), image_size=IMAGE).eval()
+    single.load_state_dict(model.state_dict())
+    single = single.to(dev)
+    del model, state
+    item = ({k: {kk: vv[0] for kk, vv in v.items()} for k, v in b.items()}, {k: v[0] for k, v in g.items()},
+            np.float32(1.0))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")      # no LPIPS weights: the column is absent
+        eval_ms = host_ms(lambda: evaluate(single, [item], batch_size=1, chunk=CHUNK, image_size=IMAGE,
+                                           verbose=False))
+        del single
+        exact = init_weights(CoPoNeRF(ModelConfig(fast_sampling=False, compute_dtype="float32"),
+                                      image_size=IMAGE).eval(), seed=0).to(dev)
+        exact_ms = host_ms(lambda: evaluate(exact, [item], batch_size=1, chunk=4096, image_size=IMAGE,
+                                            verbose=False), reps=1)
+    return {"render_cf16_4_ms": render_ms, "eval_single_stage_ms": eval_ms, "eval_exact_ms": exact_ms}
+
+
 def time_train_step(dev, n_steps: int) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
@@ -133,7 +222,7 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=5, help="timed train steps (after two warm-up steps)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
-        print("bench_sampler: no CUDA device")
+        print("bench_kernels: no CUDA device")
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -142,6 +231,9 @@ def main() -> int:
 
     _build.lib()
     result = {"device": torch.cuda.get_device_name(0), **time_samplers(dev)}
+    torch.cuda.empty_cache()
+    result["split_dense_relu"] = time_split_dense(dev)
+    result.update(time_render_and_eval(dev))
     torch.cuda.empty_cache()
     result["train_step"] = time_train_step(dev, args.steps)
     print(json.dumps(result))

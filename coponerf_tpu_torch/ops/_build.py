@@ -8,6 +8,10 @@ hash of the sources and flags, so an edited source is never served by a
 stale build.  Nothing here runs at import time, and nothing falls back: a
 missing ``nvcc`` or a failed compile raises.
 
+K2's bf16 kernel reads through TMA descriptors.  ``cuTensorMapEncodeTiled``
+is a driver-API function: ``csrc/split_matmul.cu`` fetches it once through
+the runtime's ``cudaGetDriverEntryPoint``, so nothing links ``-lcuda``.
+
 Each exported function takes device pointers and the CUDA stream as
 ``c_void_p`` and returns ``cudaGetLastError()`` after its launch; ``check``
 turns a non-zero code into an exception.
@@ -43,8 +47,9 @@ SIGNATURES = {
     "k1_corner_sample": [P, P, P, P, I, I, I, L, I, P],
     # grid, n_levels, 4 tables (bf16), 4 outs, (H, W, C) x 4, B, P, zeros_mode, out_f32, stream
     "k1_multilevel_sample": [P, I] + [P] * 8 + [I] * 12 + [I, L, I, I, P],
-    # p0, p1, p2, pc, pt, W (K, N), bias, fk (N, NK), out, k, rows, K0, Kc, N, NK, dtype, stream
-    "k2_split_dense_relu": [P, P, P, P, P, P, P, P, P, P, L, I, I, I, I, I, P],
+    # p0, p1, p2, pc, pt, W (bf16: (N, Kmm); f32: (Kmm, N)), W's tanh rows (3, N), bias,
+    # fk (bf16: (NK, N); f32: (N, NK)), out, k, rows, K0, Kc, N, NK, dtype, stream
+    "k2_split_dense_relu": [P] * 11 + [L, I, I, I, I, I, P],
     # pre, w, out, R, V, S, N, C, dtype, stream
     "k3_weighted_sum": [P, P, P, I, I, I, I, I, I, P],
     # g, idx, w, out (f32, zeroed), B, P, HW, C, g dtype, stream

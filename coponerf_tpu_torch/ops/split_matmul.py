@@ -108,27 +108,38 @@ def _split_dense_relu_fwd(parts, kernel, bias, fk):
     if kd not in _DTYPES:
         raise TypeError(f"unsupported part dtype {kd}")
     K0, Kc = p0.shape[-1], pc.shape[-1]
-    if NK != 128 or N % 64 or (3 * K0 + Kc) % 32 or K0 % 8 or Kc % 8:
-        raise ValueError(f"unsupported widths: K0={K0} Kc={Kc} N={N} NK={NK}")
+    Kmm = K - 3
+    # the bf16 kernel walks N in chunks of 208 and K in 64-wide TMA boxes;
+    # the f32 kernel N in chunks of 64 and K in slices of 16
+    n_step, k_step = (208, 64) if kd == torch.bfloat16 else (64, 16)
+    if NK != 128 or N % n_step or K0 % k_step or Kc % k_step:
+        raise ValueError(f"unsupported widths for {kd}: K0={K0} Kc={Kc} N={N} NK={NK}")
     if not all(p.is_contiguous() and p.data_ptr() % 16 == 0 for p in parts[:4]):
         raise ValueError("p0, p1, p2 and pc must be contiguous and 16-byte aligned")
     if not pt.is_contiguous():
         raise ValueError("pt must be contiguous")
-    w = kernel.to(kd).contiguous()
+    w = kernel[:Kmm].to(kd)
+    f = fk.to(kd)
+    if kd == torch.bfloat16:       # wgmma reads both operands K-major
+        w, f = w.t(), f.t()
+    w, f = w.contiguous(), f.contiguous()
+    wt = kernel[Kmm:].to(kd).float().contiguous()
     b = bias.float().contiguous()
-    f = fk.to(kd).contiguous()
     M = p0.numel() // K0
     out = torch.empty((*lead, N), dtype=kd, device=device)
     k = torch.empty((*lead, NK), dtype=kd, device=device)
     lib = _build.lib()
     code = lib.k2_split_dense_relu(
         p0.data_ptr(), p1.data_ptr(), p2.data_ptr(), pc.data_ptr(), pt.data_ptr(),
-        w.data_ptr(), b.data_ptr(), f.data_ptr(), out.data_ptr(), k.data_ptr(),
+        w.data_ptr(), wt.data_ptr(), b.data_ptr(), f.data_ptr(), out.data_ptr(), k.data_ptr(),
         M, K0, Kc, N, NK, _DTYPES[kd], _build.stream_of(p0),
     )
     _build.check(code, "k2_split_dense_relu")
     split_dense_relu.launches += 1
+    if kd == torch.float32:
+        split_dense_relu.f32_launches += 1
     return out, k
 
 
-split_dense_relu.launches = 0
+split_dense_relu.launches = 0          # every launch
+split_dense_relu.f32_launches = 0      # of those, the exact path's f32 kernel

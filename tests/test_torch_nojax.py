@@ -36,7 +36,7 @@ import torch
 torch.set_num_threads(2)
 import coponerf_tpu_torch
 import coponerf_tpu_torch.test
-import coponerf_tpu_torch.bench_sampler
+import coponerf_tpu_torch.bench_kernels
 from coponerf_tpu_torch.config import Config, LossConfig, ModelConfig, TrainConfig
 from coponerf_tpu_torch.data import acid, loader, realestate, scene_dataset
 from coponerf_tpu_torch.eval import harness, metrics, overlap

@@ -284,11 +284,16 @@ def test_bilinear_sample_kernel_matches_plain(cuda, mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows", [0, 77, 128, 129, 600, 40000])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_split_dense_relu_kernel_matches_plain(cuda, dtype):
+def test_split_dense_relu_kernel_matches_plain(cuda, dtype, rows):
+    """Row counts: none, one partial 128-row tile, one exact tile, a tile
+    and one row, and many tiles with a ragged last one; even counts as two
+    view rows, as the model lays them out."""
     g = torch.Generator(device=cuda).manual_seed(1)
-    parts = [torch.randn(2, 300, w, device=cuda, generator=g).to(dtype) for w in (256, 256, 256, 64)]
-    parts.append(torch.tanh(torch.randn(2, 300, 3, device=cuda, generator=g)).to(dtype))
+    lead = (2, rows // 2) if rows % 2 == 0 else (1, rows)
+    parts = [torch.randn(*lead, w, device=cuda, generator=g).to(dtype) for w in (256, 256, 256, 64)]
+    parts.append(torch.tanh(torch.randn(*lead, 3, device=cuda, generator=g)).to(dtype))
     kernel = torch.randn(835, 832, device=cuda, generator=g) / 835 ** 0.5
     bias = torch.randn(832, device=cuda, generator=g) * 0.1
     fk = torch.randn(832, 128, device=cuda, generator=g) / 832 ** 0.5
