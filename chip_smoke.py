@@ -26,7 +26,8 @@ result line:
      volumes at the train shape (B 6, Q = S = 4096) and the inference shape
      (B 1); K7's round-1 and round-2 logits at the stage-A shape (2 view
      rows x 16 x 32768 tokens) and K6 on a whole single-stage chunk (32768
-     rays, V 2, S 64; its plain version takes the rays in blocks).  Each prints its error against a stated bound and CUDA-event
+     rays, V 2, S 64; its plain version takes the rays in blocks; with its
+     device scratch) and on 4096 rays at V*S 160.  Each prints its error against a stated bound and CUDA-event
      times of the kernel and, where one PyTorch call computes the same
      function, of that call (median of 5 windows of 10 back-to-back calls,
      per call) and of its plain version (median of 3 single calls), beside
@@ -601,8 +602,8 @@ K6_WEIGHTS = (("w1", (835, 832)), ("w1b", (832,)), ("fka", (832, 128)), ("fkb", 
 
 def phase_fusion_kernels(dev, summary, gen) -> bool:
     """K7's two kernels at the stage-A shape (R 2, T = 16 x 32768) and K6
-    on a single-stage chunk (B 1, V 2, S 64, N 32768), each against its
-    plain version.  Bounds (tests/test_torch_attn_embed.py and
+    on a single-stage chunk (B 1, V 2, S 64, N 32768) and on 4096 rays at
+    S 80 (V*S 160), each against its plain version.  Bounds (tests/test_torch_attn_embed.py and
     tests/test_torch_render_core.py): the same bf16 operands with f32 sums
     in another order, where a hidden activation next to a bf16 rounding
     boundary may round the other way: K7 logits 1e-3 of the largest
@@ -649,28 +650,40 @@ def phase_fusion_kernels(dev, summary, gen) -> bool:
     del ze, lc, args2
     torch.cuda.empty_cache()
 
-    # K6: one single-stage chunk, samples as K1 gives them (relu'd latents)
-    V, S = 2, 64
-    T = S * N
+    # K6: one single-stage chunk, samples as K1 gives them (relu'd latents),
+    # then a chunk of V*S 160 (two 128-token tiles a sample set, the second
+    # ragged) against the plain version only
+    V = 2
     w = scaled_weights(K6_WEIGHTS, gen, dev)
-    sp = [torch.relu(torch.randn(V, T, c, device=dev, generator=gen)).bfloat16() for c in (256, 256, 256, 64)]
-    ss = [torch.relu(torch.randn(V, T, c, device=dev, generator=gen)).bfloat16() for c in (256, 256, 256, 64)]
-    ptp = torch.randn(V, T, 3, device=dev, generator=gen) * 3
-    pts = torch.randn(V, T, 3, device=dev, generator=gen) * 3
-    lc = torch.randn(V, T, 16, device=dev, generator=gen).bfloat16()
-    args = (sp, ptp, ss, pts, lc, *(w[k] for k, _ in K6_WEIGHTS))
-    with torch.no_grad():
-        z, at = rc.render_core(*args, S, V, N)
-        pz, pat = rc.render_core_plain(*args, S=S, V=V, n_rays=N)
-    zmx, zmn, ztop, zgood = close_at(z, pz, 3e-3, 1e-4)
-    da = (at - pat).abs()
-    amx, amn = da.max().item(), da.mean().item()
-    good = zgood and amx <= 1e-3 and amn <= 1e-5
+
+    def k6_inputs(S, N):
+        T = S * N
+        sp = [torch.relu(torch.randn(V, T, c, device=dev, generator=gen)).bfloat16() for c in (256, 256, 256, 64)]
+        ss = [torch.relu(torch.randn(V, T, c, device=dev, generator=gen)).bfloat16() for c in (256, 256, 256, 64)]
+        ptp = torch.randn(V, T, 3, device=dev, generator=gen) * 3
+        pts = torch.randn(V, T, 3, device=dev, generator=gen) * 3
+        lc = torch.randn(V, T, 16, device=dev, generator=gen).bfloat16()
+        return (sp, ptp, ss, pts, lc, *(w[k] for k, _ in K6_WEIGHTS))
+
+    def k6_check(args, S, N):
+        with torch.no_grad():
+            z, at = rc.render_core(*args, S, V, N)
+            pz, pat = rc.render_core_plain(*args, S=S, V=V, n_rays=N)
+        zmx, zmn, ztop, zgood = close_at(z, pz, 3e-3, 1e-4)
+        da = (at - pat).abs()
+        amx, amn = da.max().item(), da.mean().item()
+        good = zgood and amx <= 1e-3 and amn <= 1e-5
+        return (f"z_sum max_abs {zmx:.3e} mean_abs {zmn:.3e} of largest {ztop:.3g} (bound 3e-3 / 1e-4 of it), at_wt "
+                f"max_abs {amx:.3e} mean_abs {amn:.3e} (bound 1e-3 / 1e-5) {'ok' if good else 'FAIL'}",
+                good, max(zmx, amx))
+
+    S = 64
+    args = k6_inputs(S, N)
+    msg, good, err = k6_check(args, S, N)
     ok &= good
-    del z, at, pz, pat
     ms = cuda_ms(lambda: rc.render_core(*args, S, V, N), reps=3, inner=1)
     pms = cuda_ms(lambda: rc.render_core_plain(*args, S=S, V=V, n_rays=N), reps=1, inner=1)
-    tok = V * T
+    tok = V * S * N
     flops = (2 * tok * 2 * 835 * 832 + 2 * tok * 2 * 832 * 128           # W1 on both sets, the key folds
              + tok * 2 * (3 * 128 * 128 + 2 * 16 * 128)                 # kv, ce, qre chains
              + 2 * 2 * tok * 2 * 832                                    # both rounds' weighted sums
@@ -678,14 +691,17 @@ def phase_fusion_kernels(dev, summary, gen) -> bool:
     nbytes = (2 * tok * 832 * 2 + 2 * tok * 3 * 2 + tok * 16 * 2 + N * (416 + V * S) * 4
               + sum(x.numel() for x in w.values()) * 2)
     bms, bby = bound(nbytes, flops, BF16_FLOPS)
-    log(f"[kernels] K6 render_core B=1 V={V} S={S} N={N}: z_sum max_abs {zmx:.3e} mean_abs {zmn:.3e} of largest "
-        f"{ztop:.3g} (bound 3e-3 / 1e-4 of it), at_wt max_abs {amx:.3e} mean_abs {amn:.3e} (bound 1e-3 / 1e-5) "
-        f"{'ok' if good else 'FAIL'}; kernel {ms:.3f} ms ({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s of the "
-        f"{flops:.3g} the function needs; W1 runs twice), plain {pms:.3f} ms, library none (no one PyTorch call "
-        f"computes it), bound {bms:.3f} ms ({bby}; bytes {nbytes / 1e9:.2f} GB)")
-    summary["render_core"] = dict(max_abs_err=max(zmx, amx), ms=ms, plain_ms=pms, library_ms=None, bound_ms=bms,
-                                  bound_by=bby)
-    del sp, ss, args
+    log(f"[kernels] K6 render_core B=1 V={V} S={S} N={N}: {msg}; kernel {ms:.3f} ms "
+        f"({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s of the {flops:.3g} the function needs), plain {pms:.3f} ms, "
+        f"library none (no one PyTorch call computes it), bound {bms:.3f} ms ({bby}; bytes {nbytes / 1e9:.2f} GB); "
+        f"device scratch {rc.scratch_bytes(1, V, S, N) / 1e6:.1f} MB (a slot per block)")
+    summary["render_core"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None, bound_ms=bms, bound_by=bby)
+    del args
+    torch.cuda.empty_cache()
+    S, N2 = 80, 4096
+    msg, good, _ = k6_check(k6_inputs(S, N2), S, N2)
+    ok &= good
+    log(f"[kernels] K6 render_core B=1 V={V} S={S} N={N2} (V*S 160: two tiles a sample set): {msg}")
     torch.cuda.empty_cache()
     return ok
 

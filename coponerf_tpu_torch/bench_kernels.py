@@ -13,8 +13,13 @@ Prints one JSON line with:
 - ``split_dense_relu``: K2 (``split_dense_relu``) at stage A (bf16,
   1,048,576 rows), the exact evaluation's shape (f32, 524,288 rows) and
   the train step's (bf16, 147,456 rows), ms per call;
+- ``render_core_chunk_ms``: ``render_core`` (K6) on one single-stage
+  chunk (B 1, V 2, S 64, 32768 rays), ms per call;
 - ``render_cf16_4_ms``: one 256^2 request in the fast config (cf[16,4],
   two 32768-ray chunks, encode excluded), ms per image;
+- ``render_single_stage_ms`` and ``render_core_single_stage_ms``: the same
+  request in the single-stage fast config (S 64), unfused and with
+  ``fusion="render_core"``, in turns, ms per image;
 - ``eval_single_stage_ms`` and ``eval_exact_ms``: one synthetic 256^2 pair
   through ``eval.harness.evaluate`` in the test entry's fast config
   (single stage, S 64, 32768-ray chunks) and in its default exact config
@@ -29,8 +34,8 @@ such windows; the render and the evaluations are host-clock times up to
 ``torch.cuda.synchronize()`` after a warm-up call, the median of three
 (the exact evaluation: one).  Run it in two checkouts of the repo in turns
 on one card (A, B, B, A) to compare them: it uses only entry points both
-have (the samplers, ``split_dense_relu``, ``encode``, ``render``,
-``evaluate`` and ``train_step``).
+have (the samplers, ``split_dense_relu``, ``render_core``, ``encode``,
+``render``, ``evaluate`` and ``train_step``).
 """
 
 from __future__ import annotations
@@ -128,6 +133,32 @@ def time_split_dense(dev) -> dict:
     return out
 
 
+def render_core_inputs(dev, S: int = 64, V: int = 2, N: int = CHUNK):
+    """Seeded arguments of ``render_core`` on one single-stage chunk: the two
+    sample sets (relu'd latents, as the sampler gives them), positions,
+    local coordinates and the 21 weights, scaled like the model's."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    T = S * N
+    shapes = ((835, 832), (832,), (832, 128), (832, 128), (128,), (128, 128), (128,), (16, 128), (128,),
+              (128, 128), (128,), (128, 128), (16, 128), (128,), (128, 128), (128,), (416, 128), (128,),
+              (832, 416), (832, 416), (416,))
+    w = [torch.randn(*sh, device=dev, generator=gen) * (0.1 if len(sh) == 1 else sh[0] ** -0.5) for sh in shapes]
+    sets = [[torch.relu(torch.randn(V, T, c, device=dev, generator=gen)).bfloat16() for c in (256, 256, 256, 64)]
+            for _ in range(2)]
+    pt = [torch.randn(V, T, 3, device=dev, generator=gen) * 3 for _ in range(2)]
+    lc = torch.randn(V, T, 16, device=dev, generator=gen).bfloat16()
+    return (sets[0], pt[0], sets[1], pt[1], lc, *w, S, V, N)
+
+
+def time_render_core(dev) -> dict:
+    from coponerf_tpu_torch.ops.render_core import render_core
+
+    args = render_core_inputs(dev)
+    with torch.no_grad():
+        (ms,) = cuda_ms_in_turns([lambda: render_core(*args)], reps=5, inner=1)
+    return {"render_core_chunk_ms": ms}
+
+
 def host_ms(fn, reps: int = 3) -> float:
     """Median host-clock ms of ``fn`` up to ``torch.cuda.synchronize()``, after one warm-up call."""
     fn()
@@ -169,6 +200,22 @@ def time_render_and_eval(dev) -> dict:
     single.load_state_dict(model.state_dict())
     single = single.to(dev)
     del model, state
+    with torch.no_grad():
+        sstate = single.encode(batch)
+
+        def render_single(fusion):
+            for lo in range(0, IMAGE * IMAGE, CHUNK):
+                q = dict(batch["query"], uv=batch["query"]["uv"][:, :, lo: lo + CHUNK],
+                         rgb=batch["query"]["rgb"][:, :, lo: lo + CHUNK])
+                single.render({"context": batch["context"], "query": q}, sstate, val=True, fusion=fusion)
+
+        render_single(None)
+        render_single("render_core")
+        times = {None: [], "render_core": []}
+        for r in range(3):               # in turns, the order reversed every other round
+            for fusion in ((None, "render_core") if r % 2 == 0 else ("render_core", None)):
+                times[fusion].append(host_ms(lambda: render_single(fusion), reps=1))
+    del sstate
     item = ({k: {kk: vv[0] for kk, vv in v.items()} for k, v in b.items()}, {k: v[0] for k, v in g.items()},
             np.float32(1.0))
     with warnings.catch_warnings():
@@ -180,7 +227,9 @@ def time_render_and_eval(dev) -> dict:
                                       image_size=IMAGE).eval(), seed=0).to(dev)
         exact_ms = host_ms(lambda: evaluate(exact, [item], batch_size=1, chunk=4096, image_size=IMAGE,
                                             verbose=False), reps=1)
-    return {"render_cf16_4_ms": render_ms, "eval_single_stage_ms": eval_ms, "eval_exact_ms": exact_ms}
+    return {"render_cf16_4_ms": render_ms, "render_single_stage_ms": statistics.median(times[None]),
+            "render_core_single_stage_ms": statistics.median(times["render_core"]),
+            "eval_single_stage_ms": eval_ms, "eval_exact_ms": exact_ms}
 
 
 def time_train_step(dev, n_steps: int) -> dict:
@@ -233,6 +282,9 @@ def main() -> int:
     result = {"device": torch.cuda.get_device_name(0), **time_samplers(dev)}
     torch.cuda.empty_cache()
     result["split_dense_relu"] = time_split_dense(dev)
+    torch.cuda.empty_cache()
+    result.update(time_render_core(dev))
+    torch.cuda.empty_cache()
     result.update(time_render_and_eval(dev))
     torch.cuda.empty_cache()
     result["train_step"] = time_train_step(dev, args.steps)

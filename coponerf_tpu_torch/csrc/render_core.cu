@@ -13,55 +13,111 @@
 //   z_sum = bf16(sum w2 pre_p) @ flva + bf16(sum w2 flip(pre_s)) @ flvb + flv_bias + V * z1
 // bf16 operands with f32 sums throughout, as the TPU kernel.
 //
-// What bounds it on the H100: operations (W1 is ~0.36 GFLOP a ray at S 64,
-// V 2, against ~0.23 MB of samples).  No 832-wide activation reaches device
-// memory.  A ray's pre-activations (2 x V*S x 832 bf16, 426 KB at S 64) do
-// not fit one SM's shared memory, so the block makes two passes over W1:
-//   pass 1, per chunk of 32 tokens: W1 of the p rows (resident input rows,
-//     cp.async double-buffered W1 tiles, wmma bf16, as K2) into a bf16 chunk
-//     buffer, the fka fold from the rounded chunk; the same for the matching
-//     flipped s rows; the round-1 chain on the chunk's keys (attn_chain.cuh);
-//     then an online softmax that rescales and accumulates both weighted sums
-//     from the two chunk buffers;
-//   then z1, ze and the round-2 logits of every token (lc and ze only), and
-//     their softmax;
-//   pass 2: W1 again, chunk by chunk, accumulating the round-2 weighted sums.
-// The 832 -> 416 value products run on the per-ray vectors (SIMT, weights
-// from L2).  One block per SM (~220 KB of shared memory), persistent over
-// the rays.  A thread-block cluster sharing the pre-activations through
-// distributed shared memory would remove the second W1 pass.
+// What bounds it on the H100: operations.  W1 and the key folds are ~0.41
+// GFLOP a ray at S 64, V 2 against ~0.43 MB of samples; a 32768-ray chunk
+// needs ~14 TFLOP, 14.2 ms at the bf16 peak.  No 832-wide activation
+// reaches the output.
+//
+// Design: W1 runs once a ray, on K2's pipeline (hopper.cuh).  One
+// persistent block per SM walks the rays; one producer thread keeps a ring
+// of 4 shared-memory stages in flight with TMA and mbarriers; two consumer
+// warpgroups (setmaxnreg 240 / 24) run wgmma m64n208k16 on 128-row tiles.
+// A tile is 128 tokens of one sample set of one ray (one tile a set at
+// V * S <= 128).  A ray's tokens are strided in the (B*V, S*N, C) level
+// tensors, so each level is read through a 3-D map {C, N, B*V*S} whose box
+// {64, 1, 128} at (k0, n, b*V*S + 128 * tile) lands token v*S + s in row
+// v*S + s of the swizzled tile.  Rows past V * S (the next ray's tokens,
+// or TMA's zero fill at the end) are computed and then weigh 0.  The
+// epilogue adds the tanh products and the bias, applies the relu, rounds
+// to bf16 in registers and stores the tile with plain stores into the
+// block's scratch slot in device memory, which is read back at once; the
+// rounded pairs are the register-A operand of the key head (fka for p
+// tiles, fkb for s tiles), whose f32 partials go to the slot too.
+//
+// Phase B, the per-ray tail, runs on the 256 consumer threads alone, on a
+// named barrier.  Its large reads go through the same ring: once the
+// consumers have fenced their slot stores (fence.proxy.async) and arrived
+// on slot_ready, the producer queues, for each attention round, the slot's
+// pre-activation rows (16 a slice) and flva, flvb (32 rows a slice) as
+// bulk copies, so TMA keeps up to 4 slices of them in flight, also while
+// the consumers run the chains: 8 warps reading them from L2 themselves
+// kept too few loads in flight, and those reads took most of the tail.
+// The tail: kpre from the two key partials (p token (v, s) pairs with s
+// row (V-1-v)*S + s); the round-1 chain, a 16-token tile a warp
+// (attn_chain.cuh; its biases and 16-deep weights in shared memory, the
+// 128 x 128 ones from L2); the exact softmax and at_wt; the weighted sums;
+// the value product for z1; ze and ze @ wra split over all 256 threads;
+// the round-2 chain, its softmax, the round-2 sums and the value product
+// for z_sum + V * z1.
+// What holds it back (k6_phases.py on an H100 SXM at 700 W): the tail
+// leaves the tensor cores idle for more than half of a chunk's ~80 ms;
+// within it the two chains (8 warps, one tile each, their 128 x 128
+// weights from L2) and the per-ray value products (flva and flvb, 1.4 MB,
+// streamed twice a ray, near the L2's rate when every SM streams them).
 
 #include <math.h>
-#include <mma.h>
 
 #include "attn_chain.cuh"
+#include "hopper.cuh"
 
 namespace coponerf {
 namespace rc {
 
-using namespace nvcuda;
 using chain::bf16;
 
-constexpr int kThreads = 256;
-constexpr int MT = 32;              // tokens of one sample set per chunk
 constexpr int C0 = 256, CC = 64;    // level widths: three UFC levels, conv_map
 constexpr int KX = 3 * C0 + CC;     // 832 sampled channels
 constexpr int NO = 832;             // W1 output width
 constexpr int NZ = 416;             // value width
 constexpr int HK = 128;             // key width
-constexpr int BN = 64, BK = 32;
-constexpr int LDX = KX + 8, LDW = BN + 8, LDC = BN + 4, LDF = HK + 8, LDK = HK + 4;
+constexpr int BM = 128;             // tokens a tile: two consumer warpgroups of 64
+constexpr int BN = 208;             // output columns a chunk
+constexpr int BK = kBoxK;           // K depth of a ring slice
+constexpr int STAGES = 4;           // ring stages: the tail's vectors leave no room for a fifth
+constexpr int A_BYTES = BM * BK * 2;
+constexpr int B_BYTES = BN * BK * 2;
+constexpr int F_BYTES = HK * BK * 2;
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int F_STEPS = (BN + BK - 1) / BK;  // fk slices a chunk (the last one partly used)
+constexpr int CHUNKS = NO / BN;
+constexpr int KBP = C0 / BK;                 // K slices of each 256-wide level
+constexpr int KB = KX / BK;                  // K slices a chunk
+constexpr int CONSUMERS = 256;               // warps 0-7; the producer: warps 8-11
+constexpr int THREADS = CONSUMERS + 128;
+constexpr int kBar = 1;                      // the consumers' named barrier
+constexpr int MAX_TOKENS = 1024;             // V * S a ray: its logit rows live in shared memory
+constexpr int WS_ROWS = 16;                  // slot rows a ring slice of the weighted sums
+constexpr int V_ROWS = 32;                   // flva / flvb rows a ring slice of the value products
+constexpr int WS_BYTES = WS_ROWS * NO * 2;
+constexpr int V_BYTES = V_ROWS * NZ * 2;
+static_assert(WS_BYTES <= STAGE_BYTES && V_BYTES <= STAGE_BYTES && NO % V_ROWS == 0, "tail slices fit a stage");
+
+// one block's scratch slot: the rounded pre-activations of both sets
+// (2 x vsp x 832 bf16), then their key partials (2 x vsp x 128 f32); rows
+// of the s set in its tensor (view-flipped) order
+__host__ __device__ inline size_t slot_bytes(int vsp) {
+  return static_cast<size_t>(vsp) * (2 * NO * 2 + 2 * HK * 4);
+}
+
+// shared memory: the ring (1024-aligned), W1's tanh rows and bias, the
+// barriers, then phase B's vectors, the two logit rows, the s set's
+// weights in slot order, the chain biases and the two 16-deep chain weights
+__host__ __device__ inline size_t smem_bytes(int vsp) {
+  return 1024 + static_cast<size_t>(STAGES) * STAGE_BYTES + 4ull * NO * 4 + (2ull * STAGES + 2) * 8 +
+         (2ull * NO + NZ + 2ull * HK + 16ull * HK + 6ull * HK) * 4 + 3ull * vsp * 4 + 2ull * HK * chain::LDL * 2;
+}
+
+struct Maps {
+  CUtensorMap lev[2][4];  // each set's levels as {C, N, B*V*S}, boxes 64 x 1 x 128
+  CUtensorMap w;          // W1's first 832 rows transposed (832 x 832), boxes 64 x 208
+  CUtensorMap fk[2];      // fka, fkb transposed (128 x 832), boxes 64 x 128
+};
 
 struct Params {
-  const bf16* lev_p[4];
-  const bf16* pt_p;
-  const bf16* lev_s[4];
-  const bf16* pt_s;
-  const bf16* lc;
-  const bf16* w1;      // (835, 832)
+  const bf16* pt[2];   // (B*V, S*N, 3) of each set
+  const bf16* lc;      // (B*V, S*N, 16)
+  const float* wt3;    // W1's three tanh rows (3, 832)
   const float* w1b;
-  const bf16* fka;     // (832, 128)
-  const bf16* fkb;
   const float* fkbias;
   const bf16* wk2t;    // transposed (out x in)
   const float* bk2;
@@ -79,196 +135,31 @@ struct Params {
   const bf16* flva;    // (832, 416)
   const bf16* flvb;
   const float* flvbias;
+  unsigned char* scratch;  // gridDim.x slots
   float* zsum;         // (B, N, 416)
   float* atwt;         // (B, N, V*S)
   int B, V, S, N;
 };
 
-// shared memory layout (byte offsets); every region is 32-byte aligned
-constexpr size_t kX = 0;
-constexpr size_t kPP = kX + MT * LDX * 2;
-constexpr size_t kPS = kPP + MT * LDX * 2;
-constexpr size_t kWs = kPS + MT * LDX * 2;
-constexpr size_t kCs = kWs + 2 * BK * LDW * 2;
-constexpr size_t kFs = kCs + MT * LDC * 4;          // fk tile; then the chunk's bf16 keys
-constexpr size_t kKs = kFs + BN * LDF * 2;
-constexpr size_t kTs = kKs + MT * LDK * 4;
-constexpr size_t kUA = kTs + MT * 3 * 4;
-constexpr size_t kUB = kUA + NO * 4;
-constexpr size_t kZ1 = kUB + NO * 4;
-constexpr size_t kZE = kZ1 + NZ * 4;
-constexpr size_t kZW = kZE + HK * 4;
-constexpr size_t kRed = kZW + HK * 4;
-constexpr size_t kEx = kRed + MT * 4 * 4;
-constexpr size_t kStat = kEx + MT * 4;
-constexpr size_t kLg = kStat + 32;                  // two logit rows of VSP floats
-
-__host__ __device__ inline size_t smem_bytes(int vsp) { return kLg + 2 * static_cast<size_t>(vsp) * 4; }
+// Built with -DK6_PHASES (coponerf_tpu_torch/k6_phases.py), thread 0 of
+// each block adds the SM clocks of each step of a ray to k6_phase_clocks,
+// right after the consumers' barrier that ends the step.
+#ifdef K6_PHASES
+__device__ unsigned long long k6_phase_clocks[10];
+#define PHASE_END(i)                                \
+  if (tid == 0) {                                   \
+    const long long t_ = clock64();                 \
+    atomicAdd(&k6_phase_clocks[i], t_ - t_prev);    \
+    t_prev = t_;                                    \
+  }
+#else
+#define PHASE_END(i)
+#endif
 
 __device__ __forceinline__ float bfr(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 
-__device__ __forceinline__ long long token(const Params& p, int b, int v, int s, int n) {
-  return ((static_cast<long long>(b) * p.V + v) * p.S + s) * p.N + n;
-}
-
-using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// W1 on the chunk's MT tokens j0.. of one sample set (view rows flipped for
-// the s set): relu(. + b1) rounded to bf16 into P (MT x LDX); with kFold
-// also kacc += P @ fk (this warp's 16 x 32 part of the MT x 128 keys).
-template <bool kFold>
-__device__ void w1_chunk(const Params& p, const bf16* const* lev, const bf16* pt, bool flip, int b, int n,
-                         int j0, int VS, unsigned char* sm, bf16* P, const bf16* fk, Acc (&kacc)[2]) {
-  bf16* X = reinterpret_cast<bf16*>(sm + kX);
-  bf16* Ws = reinterpret_cast<bf16*>(sm + kWs);
-  float* Cs = reinterpret_cast<float*>(sm + kCs);
-  bf16* Fs = reinterpret_cast<bf16*>(sm + kFs);
-  float* Ts = reinterpret_cast<float*>(sm + kTs);
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int warp_m = warp & 1, warp_n = warp >> 1;
-
-  // resident input rows: the virtual concat of the four levels, 16 B at a time
-  constexpr int units = KX / 8;
-  for (int u = tid; u < MT * units; u += kThreads) {
-    const int i = u / units, col = (u - i * units) * 8;
-    bf16* dst = X + i * LDX + col;
-    const int j = j0 + i;
-    if (j >= VS) {
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-      continue;
-    }
-    const int v = j / p.S, s = j - v * p.S;
-    const long long t = token(p, b, flip ? p.V - 1 - v : v, s, n);
-    const bf16* src;
-    if (col < C0) src = lev[0] + t * C0 + col;
-    else if (col < 2 * C0) src = lev[1] + t * C0 + (col - C0);
-    else if (col < 3 * C0) src = lev[2] + t * C0 + (col - 2 * C0);
-    else src = lev[3] + t * CC + (col - 3 * C0);
-    cp_async16(dst, src);
-  }
-  for (int u = tid; u < MT * 3; u += kThreads) {
-    const int i = u / 3, j = j0 + i;
-    float x = 0.f;
-    if (j < VS) {
-      const int v = j / p.S, s = j - v * p.S;
-      const long long t = token(p, b, flip ? p.V - 1 - v : v, s, n);
-      x = tanhf(__fdiv_rn(__bfloat162float(pt[t * 3 + (u - i * 3)]), 5.0f));
-    }
-    Ts[u] = x;
-  }
-  cp_async_commit();
-
-  constexpr int KT = KX / BK, NC = NO / BN, n_tiles = NC * KT;
-  auto issue_w = [&](int it) {
-    const int nc = it / KT, kt = it - (it / KT) * KT;
-    const int r = tid >> 3, c = (tid & 7) * 8;  // 32 rows x 8 vectors
-    cp_async16(Ws + (it & 1) * BK * LDW + r * LDW + c,
-               p.w1 + static_cast<long long>(kt * BK + r) * NO + nc * BN + c);
-    cp_async_commit();
-  };
-  issue_w(0);
-
-  for (int nc = 0; nc < NC; ++nc) {
-    Acc acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kt = 0; kt < KT; ++kt) {
-      const int it = nc * KT + kt;
-      if (it + 1 < n_tiles) {
-        issue_w(it + 1);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const bf16* wbuf = Ws + (it & 1) * BK * LDW;
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> w;
-        wmma::load_matrix_sync(a, X + (warp_m * 16) * LDX + kt * BK + kk * 16, LDX);
-        wmma::load_matrix_sync(w, wbuf + (kk * 16) * LDW + warp_n * 16, LDW);
-        wmma::mma_sync(acc, a, w, acc);
-      }
-      __syncthreads();
-    }
-
-    // epilogue: the tanh FMAs and bias in f32, relu, round
-    wmma::store_matrix_sync(Cs + (warp_m * 16) * LDC + warp_n * 16, acc, LDC, wmma::mem_row_major);
-    if (kFold) {
-      for (int u = tid; u < BN * (HK / 8); u += kThreads) {
-        const int r = u / (HK / 8), c = (u % (HK / 8)) * 8;
-        *reinterpret_cast<uint4*>(Fs + r * LDF + c) =
-            *reinterpret_cast<const uint4*>(fk + static_cast<long long>(nc * BN + r) * HK + c);
-      }
-    }
-    __syncthreads();
-    {
-      const int r = tid >> 3, c = (tid & 7) * 8;  // 32 rows x 8 vectors
-      float v[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int col = nc * BN + c + e;
-        float a = Cs[r * LDC + c + e];
-#pragma unroll
-        for (int q = 0; q < 3; ++q)
-          a = __fadd_rn(a, __fmul_rn(Ts[r * 3 + q], __bfloat162float(p.w1[static_cast<long long>(KX + q) * NO + col])));
-        v[e] = fmaxf(__fadd_rn(a, p.w1b[col]), 0.0f);
-      }
-      store16(P + r * LDX + nc * BN + c, v);
-    }
-    __syncthreads();
-    if (kFold) {  // keys from the rounded chunk: kacc += P[:, chunk] (32 x 64) @ Fs (64 x 128)
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, P + (warp_m * 16) * LDX + nc * BN + kk * 16, LDX);
-#pragma unroll
-        for (int f = 0; f < 2; ++f) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> w;
-          wmma::load_matrix_sync(w, Fs + (kk * 16) * LDF + warp_n * 32 + f * 16, LDF);
-          wmma::mma_sync(kacc[f], a, w, kacc[f]);
-        }
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// acc[c] = acc[c] * alpha + sum_t e[t] * P[t, c] over the chunk's MT tokens,
-// for all NO columns (e[t] = 0 for tokens past the ray's V * S)
-__device__ __forceinline__ void accumulate(float* acc, const bf16* P, const float* e, float alpha) {
-  for (int c = threadIdx.x; c < NO; c += kThreads) {
-    float a = acc[c] * alpha;
-#pragma unroll 8
-    for (int t = 0; t < MT; ++t) a = fmaf(e[t], __bfloat162float(P[t * LDX + c]), a);
-    acc[c] = a;
-  }
-}
-
-// z[c] = sum_k bf16(ua[k]) flva[k, c] + sum_k bf16(ub[k]) flvb[k, c] + bias[c];
-// ua and ub already hold their bf16 values.  Two adjacent columns a thread.
-__device__ __forceinline__ void values(const Params& p, const float* ua, const float* ub, float* z,
-                                       const float* add, float add_scale) {
-  const int pair = threadIdx.x;
-  if (pair >= NZ / 2) return;
-  const int c = pair * 2;
-  float a0 = 0.f, a1 = 0.f, b0 = 0.f, b1 = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < NO; ++k) {
-    const float2 wa = chain::unpack(chain::ldg32(p.flva + static_cast<long long>(k) * NZ + c));
-    const float2 wb = chain::unpack(chain::ldg32(p.flvb + static_cast<long long>(k) * NZ + c));
-    a0 = fmaf(ua[k], wa.x, a0);
-    a1 = fmaf(ua[k], wa.y, a1);
-    b0 = fmaf(ub[k], wb.x, b0);
-    b1 = fmaf(ub[k], wb.y, b1);
-  }
-  float z0 = (a0 + b0) + p.flvbias[c], z1 = (a1 + b1) + p.flvbias[c + 1];
-  if (add) {
-    z0 += add_scale * add[c];
-    z1 += add_scale * add[c + 1];
-  }
-  z[c] = z0;
-  z[c + 1] = z1;
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(kBar), "n"(CONSUMERS) : "memory");
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -283,158 +174,457 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-__global__ void __launch_bounds__(kThreads, 1) render_core_kernel(Params p) {
-  extern __shared__ __align__(128) unsigned char sm[];
-  bf16* PP = reinterpret_cast<bf16*>(sm + kPP);
-  bf16* PS = reinterpret_cast<bf16*>(sm + kPS);
-  bf16* KP = reinterpret_cast<bf16*>(sm + kFs);
-  float* Ks = reinterpret_cast<float*>(sm + kKs);
-  float* ua = reinterpret_cast<float*>(sm + kUA);
-  float* ub = reinterpret_cast<float*>(sm + kUB);
-  float* z1 = reinterpret_cast<float*>(sm + kZ1);
-  float* ze = reinterpret_cast<float*>(sm + kZE);
-  float* zw = reinterpret_cast<float*>(sm + kZW);
-  float* red = reinterpret_cast<float*>(sm + kRed);
-  float* ex = reinterpret_cast<float*>(sm + kEx);
-  float* stat = reinterpret_cast<float*>(sm + kStat);  // running max, sum, rescale
-  const int VS = p.V * p.S;
-  const int vsp = (VS + MT - 1) / MT * MT;
-  float* lg1 = reinterpret_cast<float*>(sm + kLg);
-  float* lg2 = lg1 + vsp;
+// the ray's softmax over its VS logits, by one warp, in place (and into out)
+__device__ __forceinline__ void softmax(float* lg, int VS, float* out, int lane) {
+  float m = -INFINITY;
+  for (int j = lane; j < VS; j += 32) m = fmaxf(m, lg[j]);
+  m = warp_max(m);
+  float z = 0.f;
+  for (int j = lane; j < VS; j += 32) z += expf(lg[j] - m);
+  z = warp_sum(z);
+  for (int j = lane; j < VS; j += 32) {
+    const float w = expf(lg[j] - m) / z;
+    lg[j] = w;
+    if (out) out[j] = w;
+  }
+}
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int warp_m = warp & 1, warp_n = warp >> 1;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int n_chunks = vsp / MT;
-  const long long rays = static_cast<long long>(p.B) * p.N;
-
-  for (long long ray = blockIdx.x; ray < rays; ray += gridDim.x) {
-    const int b = static_cast<int>(ray / p.N), n = static_cast<int>(ray - static_cast<long long>(b) * p.N);
-    for (int c = tid; c < NO; c += kThreads) ua[c] = ub[c] = 0.f;
-    if (tid == 0) {
-      stat[0] = -INFINITY;
-      stat[1] = 0.f;
+// partials of x (K, bf16-rounded) @ w (K x 128, bf16) into red (16 x 128):
+// thread (kq, u) 8 columns u*8.. over a sixteenth of K, 16-byte loads
+__device__ __forceinline__ void small_product(const float* x, int K, const bf16* w, float* red) {
+  const int tid = threadIdx.x, kq = tid >> 4, u = tid & 15;
+  const int k0 = kq * K / 16, k1 = (kq + 1) * K / 16;
+  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+  for (int k = k0; k < k1; ++k) {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(w + static_cast<long long>(k) * HK + u * 8));
+    const float xk = bfr(x[k]);
+    const uint32_t h[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = chain::unpack(h[e]);
+      acc[2 * e] = fmaf(xk, f.x, acc[2 * e]);
+      acc[2 * e + 1] = fmaf(xk, f.y, acc[2 * e + 1]);
     }
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) red[kq * HK + u * 8 + e] = acc[e];
+}
 
-    // ---------------- pass 1: keys, round-1 logits, online softmax sums
-    for (int ch = 0; ch < n_chunks; ++ch) {
-      const int j0 = ch * MT;
-      Acc kacc[2];
-      wmma::fill_fragment(kacc[0], 0.0f);
-      wmma::fill_fragment(kacc[1], 0.0f);
-      w1_chunk<true>(p, p.lev_p, p.pt_p, false, b, n, j0, VS, sm, PP, p.fka, kacc);
+__device__ __forceinline__ float sum16(const float* red, int c) {
+  float a = 0.f;
 #pragma unroll
-      for (int f = 0; f < 2; ++f)
-        wmma::store_matrix_sync(Ks + (warp_m * 16) * LDK + warp_n * 32 + f * 16, kacc[f], LDK,
-                                wmma::mem_row_major);
-      wmma::fill_fragment(kacc[0], 0.0f);
-      wmma::fill_fragment(kacc[1], 0.0f);
-      w1_chunk<true>(p, p.lev_s, p.pt_s, true, b, n, j0, VS, sm, PS, p.fkb, kacc);
-#pragma unroll
-      for (int f = 0; f < 2; ++f) {  // this warp's own tiles of Ks: ka + kb
-        Acc ka;
-        float* at = Ks + (warp_m * 16) * LDK + warp_n * 32 + f * 16;
-        wmma::load_matrix_sync(ka, at, LDK, wmma::mem_row_major);
-#pragma unroll
-        for (int e = 0; e < ka.num_elements; ++e) ka.x[e] = ka.x[e] + kacc[f].x[e];
-        wmma::store_matrix_sync(at, ka, LDK, wmma::mem_row_major);
-      }
-      __syncthreads();
-      for (int u = tid; u < MT * HK; u += kThreads) {
-        const int r = u / HK, c = u - r * HK;
-        KP[r * LDF + c] = __float2bfloat16_rn(fmaxf(Ks[r * LDK + c] + p.fkbias[c], 0.f));
-      }
-      __syncthreads();
+  for (int i = 0; i < 16; ++i) a += red[i * HK + c];
+  return a;
+}
 
-      {  // round-1 chain: warp (rg, cq) takes 16 tokens x 4 of the 16 output tiles
-        const int rg = warp & 1, cq = warp >> 1;
-        const int ia = rg * 16 + g, ib = ia + 8;
-        const int ja = j0 + ia, jb = j0 + ib;
-        const bf16* ra = nullptr;
-        const bf16* rb = nullptr;
-        if (ja < VS) ra = p.lc + token(p, b, ja / p.S, ja % p.S, n) * chain::L;
-        if (jb < VS) rb = p.lc + token(p, b, jb / p.S, jb % p.S, n) * chain::L;
-        uint32_t lcA[4], hA[chain::NK][4], kA[chain::NK][4];
-        chain::load_lc(ra, rb, lane, lcA);
-        chain::hidden16<false>(lcA, p.wqt, chain::L, p.bq, nullptr, lane, hA);
-#pragma unroll
-        for (int kk = 0; kk < chain::NK; ++kk) {
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int col = kk * 16 + half * 8 + 2 * t4;
-            kA[kk][half * 2] = *reinterpret_cast<const uint32_t*>(KP + ia * LDF + col);
-            kA[kk][half * 2 + 1] = *reinterpret_cast<const uint32_t*>(KP + ib * LDF + col);
+// a 16-token tile's logits over all 16 output tiles (attn_chain.cuh), the
+// 128 x 128 weights from L2.  Not inlined: ptxas then gives the chain
+// registers of its own instead of spilling it beside the rest of the
+// consumer loop
+__device__ __noinline__ void dots(const uint32_t (&pA)[chain::NK][4], const bf16* wp, const float* bp,
+                                  const uint32_t (&qA)[chain::NK][4], const bf16* wq, const float* bq, int lane,
+                                  float& s0, float& s1) {
+  chain::dot_rows<chain::NJ>(pA, wp, bp, qA, wq, bq, chain::H, 0, lane, s0, s1);
+}
+
+// relu(kp + ks + bias) of two adjacent key columns, rounded to a bf16 pair
+__device__ __forceinline__ uint32_t key_pair(const float* kp, const float* ks, const float* bias, int col) {
+  const float2 a = __ldcg(reinterpret_cast<const float2*>(kp + col));
+  const float2 c = __ldcg(reinterpret_cast<const float2*>(ks + col));
+  return chain::pack(fmaxf((a.x + c.x) + bias[col], 0.f), fmaxf((a.y + c.y) + bias[col + 1], 0.f));
+}
+
+__global__ void __launch_bounds__(THREADS, 1) render_core_kernel(const __grid_constant__ Maps maps, const Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzled stages need 1024-byte alignment
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* wt_s = reinterpret_cast<float*>(smem + STAGES * STAGE_BYTES);
+  float* bias_s = wt_s + 3 * NO;
+  uint64_t* full = reinterpret_cast<uint64_t*>(bias_s + NO);
+  uint64_t* empty = full + STAGES;
+  uint64_t* slot_ready = empty + STAGES;  // the ray's pre-activations are in the slot
+  float* ua = reinterpret_cast<float*>(slot_ready + 2);  // 16-byte aligned from here on
+  float* ub = ua + NO;
+  float* z1 = ub + NO;
+  float* ze = z1 + NZ;
+  float* zw = ze + HK;
+  float* red = zw + HK;
+  float* lg1 = red + 16 * HK;
+  const int V = p.V, S = p.S, N = p.N, VS = V * S;
+  const int tiles = (VS + BM - 1) / BM;
+  const int vsp = tiles * BM;
+  const int nws = (VS + WS_ROWS - 1) / WS_ROWS;  // ring slices of one set's pre-activations
+  float* lg2 = lg1 + vsp;
+  float* wfl = lg2 + vsp;  // the softmax weight of each slot row of the s set
+  float* cb = wfl + vsp;  // the chain biases: bq, bq2, bk2, brr, br2, fk_bias
+  bf16* wq = reinterpret_cast<bf16*>(cb + 6 * HK);  // the 16-deep chain weights, transposed
+  bf16* wrb = wq + HK * chain::LDL;
+
+  const int tid = threadIdx.x;
+  for (int i = tid; i < 3 * NO; i += THREADS) wt_s[i] = p.wt3[i];
+  for (int i = tid; i < NO; i += THREADS) bias_s[i] = p.w1b[i];
+  for (int i = VS + tid; i < vsp; i += THREADS) lg1[i] = lg2[i] = wfl[i] = 0.f;  // rows past V*S weigh 0
+  for (int i = tid; i < HK; i += THREADS) {
+    cb[i] = p.bq[i];
+    cb[HK + i] = p.bq2[i];
+    cb[2 * HK + i] = p.bk2[i];
+    cb[3 * HK + i] = p.brr[i];
+    cb[4 * HK + i] = p.br2[i];
+    cb[5 * HK + i] = p.fkbias[i];
+  }
+  for (int u = tid; u < HK * 2; u += THREADS) {
+    const int r = u >> 1, c = (u & 1) * 8;
+    *reinterpret_cast<uint4*>(wq + r * chain::LDL + c) = *reinterpret_cast<const uint4*>(p.wqt + r * chain::L + c);
+    *reinterpret_cast<uint4*>(wrb + r * chain::LDL + c) = *reinterpret_cast<const uint4*>(p.wrbt + r * chain::L + c);
+  }
+  const float *bq = cb, *bq2 = cb + HK, *bk2 = cb + 2 * HK, *brr = cb + 3 * HK, *br2 = cb + 4 * HK, *fkb = cb + 5 * HK;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);   // the producer's arrival, plus the TMA bytes
+      mbar_init(&empty[s], 8);  // one arrival from each consumer warp
+    }
+    mbar_init(slot_ready, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const long long rays = static_cast<long long>(p.B) * N;
+  const bf16* pre = reinterpret_cast<const bf16*>(p.scratch + static_cast<size_t>(blockIdx.x) * slot_bytes(vsp));
+  if (tid >= CONSUMERS) {
+    // producer: one thread issues every load into the ring, in the order
+    // the consumers take them: per ray the W1 slices of its tiles, then
+    // for each attention round the slot's pre-activation rows (the
+    // weighted sums) and flva, flvb (the value product)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == CONSUMERS) {
+      int stage = 0;
+      uint32_t phase = 0, sphase = 0;
+      auto bulk = [&](const void* src, uint32_t bytes) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_expect_tx(&full[stage], bytes);
+        bulk_load(smem + stage * STAGE_BYTES, src, bytes, &full[stage]);
+        if (++stage == STAGES) { stage = 0; phase ^= 1; }
+      };
+      for (long long ray = blockIdx.x; ray < rays; ray += gridDim.x) {
+        const int b = static_cast<int>(ray / N), n = static_cast<int>(ray - static_cast<long long>(b) * N);
+        for (int set = 0; set < 2; ++set) {
+          for (int t = 0; t < tiles; ++t) {
+            const int row0 = b * VS + t * BM;
+            for (int c = 0; c < CHUNKS; ++c) {
+              for (int kb = 0; kb < KB; ++kb) {
+                mbar_wait(&empty[stage], phase ^ 1);
+                unsigned char* st = smem + stage * STAGE_BYTES;
+                mbar_expect_tx(&full[stage], STAGE_BYTES);
+                const int part = kb < 3 * KBP ? kb / KBP : 3;
+                tma_load_3d(st, &maps.lev[set][part], &full[stage], (kb - part * KBP) * BK, n, row0);
+                tma_load_2d(st + A_BYTES, &maps.w, &full[stage], kb * BK, c * BN);
+                if (++stage == STAGES) { stage = 0; phase ^= 1; }
+              }
+              for (int f = 0; f < F_STEPS; ++f) {
+                mbar_wait(&empty[stage], phase ^ 1);
+                mbar_expect_tx(&full[stage], F_BYTES);
+                tma_load_2d(smem + stage * STAGE_BYTES + A_BYTES, &maps.fk[set], &full[stage], c * BN + f * BK, 0);
+                if (++stage == STAGES) { stage = 0; phase ^= 1; }
+              }
+            }
           }
         }
-        float s0, s1;
-        chain::dot_rows<4>(kA, p.wk2t, p.bk2, hA, p.wq2t, p.bq2, chain::H, cq * 4, lane, s0, s1);
-        if (t4 == 0) {
-          red[ia * 4 + cq] = s0;
-          red[ib * 4 + cq] = s1;
+        mbar_wait(slot_ready, sphase);  // the consumers' slot stores are done and fenced
+        sphase ^= 1;
+        for (int round = 0; round < 2; ++round) {
+          for (int set = 0; set < 2; ++set)
+            for (int i = 0; i < nws; ++i) bulk(pre + (static_cast<size_t>(set) * vsp + i * WS_ROWS) * NO, WS_BYTES);
+          for (int i = 0; i < NO / V_ROWS; ++i) bulk(p.flva + static_cast<size_t>(i) * V_ROWS * NZ, V_BYTES);
+          for (int i = 0; i < NO / V_ROWS; ++i) bulk(p.flvb + static_cast<size_t>(i) * V_ROWS * NZ, V_BYTES);
         }
       }
-      __syncthreads();
-      if (warp == 0) {  // the chunk's logits and the online-softmax update
-        const int j = j0 + lane;
-        float l = -INFINITY;
-        if (j < VS) {
-          l = (((red[lane * 4] + red[lane * 4 + 1]) + red[lane * 4 + 2]) + red[lane * 4 + 3]) * chain::kInvScale;
-          lg1[j] = l;
-        }
-        const float m_old = stat[0];
-        const float m_new = fmaxf(m_old, warp_max(l));
-        const float e = j < VS ? expf(l - m_new) : 0.f;
-        const float se = warp_sum(e);
-        ex[lane] = e;
-        if (lane == 0) {
-          const float alpha = m_old == -INFINITY ? 0.f : expf(m_old - m_new);
-          stat[0] = m_new;
-          stat[1] = stat[1] * alpha + se;
-          stat[2] = alpha;
-        }
-      }
-      __syncthreads();
-      accumulate(ua, PP, ex, stat[2]);
-      accumulate(ub, PS, ex, stat[2]);
-      __syncthreads();
     }
+    return;
+  }
 
-    // ---------------- the round-1 weights, z1, ze and ze @ wra
-    {
-      const float m = stat[0], Z = stat[1];
-      float* aw = p.atwt + ray * VS;
-      for (int j = tid; j < VS; j += kThreads) aw[j] = expf(lg1[j] - m) / Z;
-      for (int c = tid; c < NO; c += kThreads) {
-        ua[c] = bfr(ua[c] / Z);
-        ub[c] = bfr(ub[c] / Z);
+  // consumer warpgroups
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31, cw = tid >> 5;
+  const int r_in = wg * 64 + warp * 16 + (lane >> 2);  // this thread's tile rows: r_in and r_in + 8
+  const int q2 = (lane & 3) * 2;                       // and columns q2, q2 + 1 of each 8-column group
+  const int g = lane >> 2, t4 = lane & 3;
+  bf16* slot = const_cast<bf16*>(pre);
+  float* keys = reinterpret_cast<float*>(slot + 2 * static_cast<size_t>(vsp) * NO);
+  int stage = 0;
+  uint32_t phase = 0;
+#ifdef K6_PHASES
+  long long t_prev = clock64();
+#endif
+
+  // the tail's ring slices: wait for the next one; hand it back once every
+  // lane of the warp has read it
+  auto next_slice = [&]() -> const unsigned char* {
+    mbar_wait(&full[stage], phase);
+    return smem + stage * STAGE_BYTES;
+  };
+  auto free_slice = [&]() {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);
+    if (++stage == STAGES) { stage = 0; phase ^= 1; }
+  };
+  // ua[c] = bf16(sum_t w[t] pre_p[t, c]), ub[c] = bf16(sum_t w[t] pre_s[flip(t), c]):
+  // the slot's rows stream through the ring, 4 columns a thread
+  auto weighted_sums = [&](const float* w) {
+    for (int set = 0; set < 2; ++set) {
+      const float* ws = set ? wfl : w;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int i = 0; i < nws; ++i) {
+        const bf16* rows = reinterpret_cast<const bf16*>(next_slice());
+        if (tid < NO / 4) {
+#pragma unroll 4
+          for (int r = 0; r < WS_ROWS; ++r) {
+            const float x = ws[i * WS_ROWS + r];
+            const uint2 q = *reinterpret_cast<const uint2*>(rows + r * NO + 4 * tid);
+            const float2 f0 = chain::unpack(q.x), f1 = chain::unpack(q.y);
+            acc[0] = fmaf(x, f0.x, acc[0]);
+            acc[1] = fmaf(x, f0.y, acc[1]);
+            acc[2] = fmaf(x, f1.x, acc[2]);
+            acc[3] = fmaf(x, f1.y, acc[3]);
+          }
+        }
+        free_slice();
+      }
+      if (tid < NO / 4) {
+        float* out = (set ? ub : ua) + 4 * tid;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) out[e] = bfr(acc[e]);
       }
     }
-    __syncthreads();
-    values(p, ua, ub, z1, nullptr, 0.f);
-    __syncthreads();
-    if (tid < HK) {
-      float a = 0.f;
-      for (int k = 0; k < NZ; ++k) a = fmaf(bfr(z1[k]), __bfloat162float(p.wenc[k * HK + tid]), a);
-      ze[tid] = a + p.benc[tid];
+  };
+  // z[c] = sum_k ua[k] flva[k, c] + sum_k ub[k] flvb[k, c] + bias[c] (+ add_scale * add[c])
+  // (ua, ub hold bf16 values): flva and flvb stream through the ring, two
+  // adjacent columns a thread
+  auto values = [&](float* z, const float* add, float add_scale) {
+    const int c = 2 * tid;
+    float a0 = 0.f, a1 = 0.f, b0 = 0.f, b1 = 0.f;
+    for (int half = 0; half < 2; ++half) {
+      const float* x = half ? ub : ua;
+      float s0 = 0.f, s1 = 0.f;
+      for (int i = 0; i < NO / V_ROWS; ++i) {
+        const bf16* rows = reinterpret_cast<const bf16*>(next_slice());
+        if (tid < NZ / 2) {
+#pragma unroll 8
+          for (int r = 0; r < V_ROWS; ++r) {
+            const float xk = x[i * V_ROWS + r];
+            const float2 f = chain::unpack(*reinterpret_cast<const uint32_t*>(rows + r * NZ + c));
+            s0 = fmaf(xk, f.x, s0);
+            s1 = fmaf(xk, f.y, s1);
+          }
+        }
+        free_slice();
+      }
+      if (half) {
+        b0 = s0;
+        b1 = s1;
+      } else {
+        a0 = s0;
+        a1 = s1;
+      }
     }
-    __syncthreads();
-    if (tid < HK) {
-      float a = 0.f;
-      for (int k = 0; k < HK; ++k) a = fmaf(bfr(ze[k]), __bfloat162float(p.wra[k * HK + tid]), a);
-      zw[tid] = a;
+    if (tid < NZ / 2) {
+      float z0 = (a0 + b0) + p.flvbias[c], zz1 = (a1 + b1) + p.flvbias[c + 1];
+      if (add) {
+        z0 += add_scale * add[c];
+        zz1 += add_scale * add[c + 1];
+      }
+      z[c] = z0;
+      z[c + 1] = zz1;
     }
-    __syncthreads();
+  };
+  // the s set's slot row i = (V-1-v)*S + s weighs as token v*S + s
+  auto flip_weights = [&](const float* w) {
+    for (int i = tid; i < VS; i += CONSUMERS) wfl[i] = w[(V - 1 - i / S) * S + i % S];
+  };
+
+  for (long long ray = blockIdx.x; ray < rays; ray += gridDim.x) {
+    const int b = static_cast<int>(ray / N), n = static_cast<int>(ray - static_cast<long long>(b) * N);
+    auto token = [&](int t) { return (static_cast<long long>(b) * VS + t) * N + n; };  // t = v*S + s
+
+    // ---------------- phase A: W1 and the key heads of every tile, into the slot
+    for (int set = 0; set < 2; ++set) {
+      for (int t = 0; t < tiles; ++t) {
+        const int ia = t * BM + r_in, ib = ia + 8;  // slot rows
+        float ta[3], tb[3];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          ta[j] = ia < VS ? tanhf(__fdiv_rn(__bfloat162float(p.pt[set][token(ia) * 3 + j]), 5.0f)) : 0.f;
+          tb[j] = ib < VS ? tanhf(__fdiv_rn(__bfloat162float(p.pt[set][token(ib) * 3 + j]), 5.0f)) : 0.f;
+        }
+        bf16* oa = slot + (static_cast<size_t>(set) * vsp + ia) * NO;
+        bf16* ob = oa + 8 * NO;
+        float kacc[64];
+        for (int c = 0; c < CHUNKS; ++c) {
+          // the chunk's product: 13 K slices, one wgmma group in flight
+          float acc[BN / 2];
+          int prev = 0;
+          for (int kb = 0; kb < KB; ++kb) {
+            mbar_wait(&full[stage], phase);
+            const unsigned char* st = smem + stage * STAGE_BYTES;
+            const uint64_t da = sw128_desc(st + wg * 64 * 128), db = sw128_desc(st + A_BYTES);
+            pin(acc);
+            wgmma_fence();
+#pragma unroll
+            for (int k = 0; k < BK / 16; ++k) wgmma_m64n208k16_ss(acc, da + 2 * k, db + 2 * k, kb | k);
+            wgmma_commit();
+            pin(acc);
+            if (kb > 0) {
+              wgmma_wait<1>();
+              pin(acc);
+              if (lane == 0) mbar_arrive(&empty[prev]);
+            }
+            prev = stage;
+            if (++stage == STAGES) { stage = 0; phase ^= 1; }
+          }
+          wgmma_wait<0>();
+          pin(acc);
+          if (lane == 0) mbar_arrive(&empty[prev]);
+
+          // epilogue in registers: tanh products, bias, relu, round; store the
+          // chunk into the slot and keep the rounded pairs for the key head
+          uint32_t packed[BN / 4];
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+            const int col = c * BN + 8 * j + q2;
+            const float2 w0 = *reinterpret_cast<const float2*>(wt_s + col);
+            const float2 w1 = *reinterpret_cast<const float2*>(wt_s + NO + col);
+            const float2 w2 = *reinterpret_cast<const float2*>(wt_s + 2 * NO + col);
+            const float2 bb = *reinterpret_cast<const float2*>(bias_s + col);
+            packed[2 * j] = pack_bf16(epilogue(acc[4 * j], ta, w0.x, w1.x, w2.x, bb.x),
+                                      epilogue(acc[4 * j + 1], ta, w0.y, w1.y, w2.y, bb.y));
+            packed[2 * j + 1] = pack_bf16(epilogue(acc[4 * j + 2], tb, w0.x, w1.x, w2.x, bb.x),
+                                          epilogue(acc[4 * j + 3], tb, w0.y, w1.y, w2.y, bb.y));
+          }
+          // 16 bytes a lane after a transpose across each quad; plain stores:
+          // the slot is read back by this block right after the ray's tiles
+          const int q = lane & 3;
+#pragma unroll
+          for (int j0 = 0; j0 + 4 <= BN / 8; j0 += 4) {
+            uint32_t va[4] = {packed[2 * j0], packed[2 * j0 + 2], packed[2 * j0 + 4], packed[2 * j0 + 6]};
+            uint32_t vb[4] = {packed[2 * j0 + 1], packed[2 * j0 + 3], packed[2 * j0 + 5], packed[2 * j0 + 7]};
+            quad_transpose(va, q);
+            quad_transpose(vb, q);
+            *reinterpret_cast<uint4*>(oa + c * BN + 8 * (j0 + q)) = make_uint4(va[0], va[1], va[2], va[3]);
+            *reinterpret_cast<uint4*>(ob + c * BN + 8 * (j0 + q)) = make_uint4(vb[0], vb[1], vb[2], vb[3]);
+          }
+#pragma unroll
+          for (int j = BN / 32 * 4; j < BN / 8; ++j) {  // the groups left over: 4 bytes a lane
+            *reinterpret_cast<uint32_t*>(oa + c * BN + 8 * j + q2) = packed[2 * j];
+            *reinterpret_cast<uint32_t*>(ob + c * BN + 8 * j + q2) = packed[2 * j + 1];
+          }
+
+          // key head: kacc += rounded chunk (64 x 208, registers) @ fk chunk (208 x 128)
+#pragma unroll
+          for (int f = 0; f < F_STEPS; ++f) {
+            mbar_wait(&full[stage], phase);
+            const uint64_t db = sw128_desc(smem + stage * STAGE_BYTES + A_BYTES);
+            pin(kacc);
+            pin(packed);
+            wgmma_fence();
+#pragma unroll
+            for (int k = 0; k < BK / 16; ++k) {
+              const int s = f * (BK / 16) + k;
+              if (s < BN / 16)
+                wgmma_m64n128k16_rs(kacc, packed[4 * s], packed[4 * s + 1], packed[4 * s + 2], packed[4 * s + 3],
+                                    db + 2 * k, c | s);
+            }
+            wgmma_commit();
+            pin(kacc);
+            if (f > 0) {
+              wgmma_wait<1>();
+              pin(kacc);
+              if (lane == 0) mbar_arrive(&empty[prev]);
+            }
+            prev = stage;
+            if (++stage == STAGES) { stage = 0; phase ^= 1; }
+          }
+          wgmma_wait<0>();
+          pin(kacc);
+          pin(packed);
+          if (lane == 0) mbar_arrive(&empty[prev]);
+        }
+        float* ka = keys + (static_cast<size_t>(set) * vsp + ia) * HK;
+        float* kb = ka + 8 * HK;
+#pragma unroll
+        for (int j = 0; j < HK / 8; ++j) {
+          *reinterpret_cast<float2*>(ka + 8 * j + q2) = make_float2(kacc[4 * j], kacc[4 * j + 1]);
+          *reinterpret_cast<float2*>(kb + 8 * j + q2) = make_float2(kacc[4 * j + 2], kacc[4 * j + 3]);
+        }
+      }
+    }
+    // the slot's rows go back through TMA (the async proxy): fence the
+    // stores, then let the producer load them
+    asm volatile("fence.proxy.async.global;\n" ::: "memory");
+    consumers_sync();
+    PHASE_END(0)
+    if (tid == 0) mbar_arrive(slot_ready);
+
+    // ---------------- phase B: the round-1 logits, a 16-token tile a warp
+    for (int q = cw; q * 16 < VS; q += CONSUMERS / 32) {
+      const int ia = q * 16 + g, ib = ia + 8;
+      uint32_t kA[chain::NK][4];
+      const float* kpa = keys + static_cast<size_t>(ia) * HK;
+      const float* kpb = keys + static_cast<size_t>(ib) * HK;
+      // s row of natural token t = v*S + s: (V-1-v)*S + s
+      const float* ksa = keys + (static_cast<size_t>(vsp) + (V - 1 - ia / S) * S + ia % S) * HK;
+      const float* ksb = keys + (static_cast<size_t>(vsp) + (V - 1 - ib / S) * S + ib % S) * HK;
+#pragma unroll
+      for (int kk = 0; kk < chain::NK; ++kk) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int col = kk * 16 + half * 8 + 2 * t4;
+          kA[kk][half * 2] = ia < VS ? key_pair(kpa, ksa, fkb, col) : 0u;
+          kA[kk][half * 2 + 1] = ib < VS ? key_pair(kpb, ksb, fkb, col) : 0u;
+        }
+      }
+      const bf16* ra = ia < VS ? p.lc + token(ia) * chain::L : nullptr;
+      const bf16* rb = ib < VS ? p.lc + token(ib) * chain::L : nullptr;
+      uint32_t lcA[4], hA[chain::NK][4];
+      chain::load_lc(ra, rb, lane, lcA);
+      chain::hidden16<false>(lcA, wq, chain::LDL, bq, nullptr, lane, hA);
+      float s0, s1;
+      dots(kA, p.wk2t, bk2, hA, p.wq2t, bq2, lane, s0, s1);
+      if (t4 == 0) {
+        if (ia < VS) lg1[ia] = s0 * chain::kInvScale;
+        if (ib < VS) lg1[ib] = s1 * chain::kInvScale;
+      }
+    }
+    consumers_sync();
+    PHASE_END(1)
+    if (cw == 0) softmax(lg1, VS, p.atwt + ray * VS, lane);
+    consumers_sync();
+    flip_weights(lg1);
+    consumers_sync();
+    PHASE_END(2)
+    weighted_sums(lg1);
+    consumers_sync();
+    PHASE_END(3)
+    values(z1, nullptr, 0.f);
+    consumers_sync();
+    PHASE_END(4)
+    small_product(z1, NZ, p.wenc, red);
+    consumers_sync();
+    if (tid < HK) ze[tid] = sum16(red, tid) + p.benc[tid];
+    consumers_sync();
+    small_product(ze, HK, p.wra, red);
+    consumers_sync();
+    if (tid < HK) zw[tid] = sum16(red, tid);
+    consumers_sync();
+    PHASE_END(5)
 
     // ---------------- round-2 logits: 16-token tiles over the warps
-    for (int q = warp; q * 16 < VS; q += kThreads / 32) {
+    for (int q = cw; q * 16 < VS; q += CONSUMERS / 32) {
       const int ja = q * 16 + g, jb = ja + 8;
-      const bf16* ra = nullptr;
-      const bf16* rb = nullptr;
-      if (ja < VS) ra = p.lc + token(p, b, ja / p.S, ja % p.S, n) * chain::L;
-      if (jb < VS) rb = p.lc + token(p, b, jb / p.S, jb % p.S, n) * chain::L;
+      const bf16* ra = ja < VS ? p.lc + token(ja) * chain::L : nullptr;
+      const bf16* rb = jb < VS ? p.lc + token(jb) * chain::L : nullptr;
       uint32_t lcA[4], hA[chain::NK][4], qA[chain::NK][4];
       chain::load_lc(ra, rb, lane, lcA);
-      chain::hidden16<false>(lcA, p.wqt, chain::L, p.bq, nullptr, lane, hA);
+      chain::hidden16<false>(lcA, wq, chain::LDL, bq, nullptr, lane, hA);
       float zacc[chain::NJ][4];
 #pragma unroll
       for (int j = 0; j < chain::NJ; ++j) {
@@ -442,46 +632,31 @@ __global__ void __launch_bounds__(kThreads, 1) render_core_kernel(Params p) {
         zacc[j][0] = zacc[j][2] = zw[col];
         zacc[j][1] = zacc[j][3] = zw[col + 1];
       }
-      chain::hidden16<true>(lcA, p.wrbt, chain::L, p.brr, &zacc[0][0], lane, qA);
+      chain::hidden16<true>(lcA, wrb, chain::LDL, brr, &zacc[0][0], lane, qA);
       float s0, s1;
-      chain::dot_rows<chain::NJ>(qA, p.wr2t, p.br2, hA, p.wq2t, p.bq2, chain::H, 0, lane, s0, s1);
+      dots(qA, p.wr2t, br2, hA, p.wq2t, bq2, lane, s0, s1);
       if (t4 == 0) {
         if (ja < VS) lg2[ja] = s0 * chain::kInvScale;
         if (jb < VS) lg2[jb] = s1 * chain::kInvScale;
       }
     }
-    __syncthreads();
-    if (warp == 0) {  // softmax over the V * S tokens, in place
-      float m = -INFINITY;
-      for (int j = lane; j < VS; j += 32) m = fmaxf(m, lg2[j]);
-      m = warp_max(m);
-      float z = 0.f;
-      for (int j = lane; j < VS; j += 32) z += expf(lg2[j] - m);
-      z = warp_sum(z);
-      for (int j = lane; j < VS; j += 32) lg2[j] = expf(lg2[j] - m) / z;
-    }
-    for (int c = tid; c < NO; c += kThreads) ua[c] = ub[c] = 0.f;
-    __syncthreads();
-
-    // ---------------- pass 2: W1 again, the round-2 weighted sums
-    for (int ch = 0; ch < n_chunks; ++ch) {
-      const int j0 = ch * MT;
-      if (tid < MT) ex[tid] = j0 + tid < VS ? lg2[j0 + tid] : 0.f;
-      Acc unused[2];
-      w1_chunk<false>(p, p.lev_p, p.pt_p, false, b, n, j0, VS, sm, PP, nullptr, unused);
-      accumulate(ua, PP, ex, 1.f);
-      __syncthreads();
-      w1_chunk<false>(p, p.lev_s, p.pt_s, true, b, n, j0, VS, sm, PP, nullptr, unused);
-      accumulate(ub, PP, ex, 1.f);
-      __syncthreads();
-    }
-    for (int c = tid; c < NO; c += kThreads) {
-      ua[c] = bfr(ua[c]);
-      ub[c] = bfr(ub[c]);
-    }
-    __syncthreads();
-    values(p, ua, ub, p.zsum + ray * NZ, z1, static_cast<float>(p.V));
-    __syncthreads();
+    consumers_sync();
+    PHASE_END(6)
+    if (cw == 0) softmax(lg2, VS, nullptr, lane);
+    consumers_sync();
+    flip_weights(lg2);
+    consumers_sync();
+    PHASE_END(7)
+    weighted_sums(lg2);
+    consumers_sync();
+    PHASE_END(8)
+    // every slot read of this ray has completed (the ring's full barriers),
+    // so the next ray's stores may follow
+    values(p.zsum + ray * NZ, z1, static_cast<float>(V));
+#ifdef K6_PHASES
+    consumers_sync();
+#endif
+    PHASE_END(9)
   }
 }
 
@@ -490,35 +665,65 @@ __global__ void __launch_bounds__(kThreads, 1) render_core_kernel(Params p) {
 
 // Sample sets p and s: four level tensors (B*V, S*N, {256, 256, 256, 64})
 // and pt (B*V, S*N, 3), bf16, sample-major; the s rows view-flipped.  lc
-// (B*V, S*N, 16) bf16.  Weights bf16 (the chain weights transposed, out x
-// in), biases f32.  Outputs f32: z_sum (B, N, 416), at_wt (B, N, V*S).
+// (B*V, S*N, 16) bf16.  w1t: W1's first 832 rows transposed (832 x 832,
+// bf16); wt3: its three tanh rows (3 x 832, f32); fkat, fkbt: fka and fkb
+// transposed (128 x 832, bf16); the chain weights transposed (out x in),
+// bf16; biases f32.  Outputs f32: z_sum (B, N, 416), at_wt (B, N, V*S).
+// scratch: k6_scratch_bytes(B, V, S, N) bytes of device memory.
+#ifdef K6_PHASES
+extern "C" int k6_phase_clocks(unsigned long long* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, coponerf::rc::k6_phase_clocks, sizeof(coponerf::rc::k6_phase_clocks)));
+}
+#endif
+
+extern "C" long long k6_scratch_bytes(int B, int V, int S, int N) {
+  using namespace coponerf::rc;
+  const long long rays = static_cast<long long>(B) * N;
+  int dev = 0, sms = 1;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return -1;
+  const int vsp = (V * S + BM - 1) / BM * BM;
+  return (rays < sms ? rays : sms) * static_cast<long long>(slot_bytes(vsp));
+}
+
 extern "C" int k6_render_core(const void* s0p, const void* s1p, const void* s2p, const void* scp,
                               const void* ptp, const void* s0s, const void* s1s, const void* s2s,
-                              const void* scs, const void* pts, const void* lc, const void* w1,
-                              const void* w1b, const void* fka, const void* fkb, const void* fkbias,
-                              const void* wk2t, const void* bk2, const void* wqt, const void* bq,
-                              const void* wq2t, const void* bq2, const void* wra, const void* wrbt,
-                              const void* brr, const void* wr2t, const void* br2, const void* wenc,
-                              const void* benc, const void* flva, const void* flvb, const void* flvbias,
-                              void* zsum, void* atwt, int B, int V, int S, int N, void* stream) {
+                              const void* scs, const void* pts, const void* lc, const void* w1t,
+                              const void* wt3, const void* w1b, const void* fkat, const void* fkbt,
+                              const void* fkbias, const void* wk2t, const void* bk2, const void* wqt,
+                              const void* bq, const void* wq2t, const void* bq2, const void* wra,
+                              const void* wrbt, const void* brr, const void* wr2t, const void* br2,
+                              const void* wenc, const void* benc, const void* flva, const void* flvb,
+                              const void* flvbias, void* zsum, void* atwt, void* scratch, long long scratch_bytes,
+                              int B, int V, int S, int N, void* stream) {
   using namespace coponerf::rc;
   using coponerf::chain::bf16;
+  namespace hopper = coponerf::hopper;
   const long long rays = static_cast<long long>(B) * N;
+  if (B < 0 || N < 0 || V <= 0 || S < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (rays == 0 || V * S == 0) return 0;
+  const int VS = V * S, vsp = (VS + BM - 1) / BM * BM;
+  const size_t bytes = smem_bytes(vsp);
+  const long long need = k6_scratch_bytes(B, V, S, N);
+  if (VS > MAX_TOKENS || bytes > 232448 || need < 0 || scratch_bytes < need ||
+      static_cast<long long>(B) * VS > (1ll << 31) - BM)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Maps maps;
+  const void* lev[2][4] = {{s0p, s1p, s2p, scp}, {s0s, s1s, s2s, scs}};
+  const int widths[4] = {C0, C0, C0, CC};
+  bool ok = hopper::bf16_map(&maps.w, w1t, KX, NO, BN) && hopper::bf16_map(&maps.fk[0], fkat, NO, HK, HK) &&
+            hopper::bf16_map(&maps.fk[1], fkbt, NO, HK, HK);
+  for (int set = 0; set < 2; ++set)
+    for (int i = 0; i < 4; ++i)
+      ok = ok && hopper::bf16_map_3d(&maps.lev[set][i], lev[set][i], widths[i], N,
+                                     static_cast<uint64_t>(B) * VS, 1, BM);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   Params p;
-  const void* lp[4] = {s0p, s1p, s2p, scp};
-  const void* ls[4] = {s0s, s1s, s2s, scs};
-  for (int i = 0; i < 4; ++i) {
-    p.lev_p[i] = static_cast<const bf16*>(lp[i]);
-    p.lev_s[i] = static_cast<const bf16*>(ls[i]);
-  }
-  p.pt_p = static_cast<const bf16*>(ptp);
-  p.pt_s = static_cast<const bf16*>(pts);
+  p.pt[0] = static_cast<const bf16*>(ptp);
+  p.pt[1] = static_cast<const bf16*>(pts);
   p.lc = static_cast<const bf16*>(lc);
-  p.w1 = static_cast<const bf16*>(w1);
+  p.wt3 = static_cast<const float*>(wt3);
   p.w1b = static_cast<const float*>(w1b);
-  p.fka = static_cast<const bf16*>(fka);
-  p.fkb = static_cast<const bf16*>(fkb);
   p.fkbias = static_cast<const float*>(fkbias);
   p.wk2t = static_cast<const bf16*>(wk2t);
   p.bk2 = static_cast<const float*>(bk2);
@@ -536,21 +741,17 @@ extern "C" int k6_render_core(const void* s0p, const void* s1p, const void* s2p,
   p.flva = static_cast<const bf16*>(flva);
   p.flvb = static_cast<const bf16*>(flvb);
   p.flvbias = static_cast<const float*>(flvbias);
+  p.scratch = static_cast<unsigned char*>(scratch);
   p.zsum = static_cast<float*>(zsum);
   p.atwt = static_cast<float*>(atwt);
   p.B = B;
   p.V = V;
   p.S = S;
   p.N = N;
-  const int vsp = (V * S + MT - 1) / MT * MT;
-  const size_t bytes = smem_bytes(vsp);
   cudaError_t e = cudaFuncSetAttribute(render_core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
-  int dev = 0, sms = 1;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int blocks = static_cast<int>(rays < sms ? rays : sms);
-  render_core_kernel<<<blocks, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(p);
+  const long long blocks = need / static_cast<long long>(slot_bytes(vsp));
+  render_core_kernel<<<static_cast<unsigned>(blocks), THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(maps, p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,9 +8,10 @@ hash of the sources and flags, so an edited source is never served by a
 stale build.  Nothing here runs at import time, and nothing falls back: a
 missing ``nvcc`` or a failed compile raises.
 
-K2's bf16 kernel reads through TMA descriptors.  ``cuTensorMapEncodeTiled``
-is a driver-API function: ``csrc/split_matmul.cu`` fetches it once through
-the runtime's ``cudaGetDriverEntryPoint``, so nothing links ``-lcuda``.
+K2's bf16 kernel and K6 read through TMA descriptors.
+``cuTensorMapEncodeTiled`` is a driver-API function: ``csrc/hopper.cuh``
+fetches it once through the runtime's ``cudaGetDriverEntryPoint``, so
+nothing links ``-lcuda``.
 
 Each exported function takes device pointers and the CUDA stream as
 ``c_void_p`` and returns ``cudaGetLastError()`` after its launch; ``check``
@@ -62,13 +63,23 @@ SIGNATURES = {
     "k7_round1_logits": [P] * 11 + [L, P],
     # ze, lc, wqt, bq, wq2t, bq2, wrat, wrbt, br, wr2t, br2, out, B, V, S, N, stream
     "k7_round2_logits": [P] * 12 + [I, I, I, I, P],
-    # 4 p levels, pt_p, 4 s levels, pt_s, lc, 21 weights and biases, z_sum, at_wt, B, V, S, N, stream
-    "k6_render_core": [P] * 34 + [I, I, I, I, P],
+    # 4 p levels, pt_p, 4 s levels, pt_s, lc, 22 weights and biases (W1 split into its transposed
+    # matmul rows and its tanh rows), z_sum, at_wt, scratch, scratch bytes, B, V, S, N, stream
+    "k6_render_core": [P] * 36 + [L, I, I, I, I, P],
+    # B, V, S, N -> scratch bytes of one k6_render_core launch on the current device
+    "k6_scratch_bytes": [I, I, I, I],
 }
+RESTYPES = {"k6_scratch_bytes": ctypes.c_longlong}
 
 _lock = threading.Lock()
 _lib = None
 build_seconds = None
+
+
+def _flags():
+    """NVCC_FLAGS plus any in $COPONERF_NVCC_EXTRA (space-separated, e.g.
+    ``-DK6_PHASES`` for ``k6_phases.py``); the library's name hashes them."""
+    return NVCC_FLAGS + os.environ.get("COPONERF_NVCC_EXTRA", "").split()
 
 
 def _sources():
@@ -88,7 +99,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags()).encode())
     for src in _sources():
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + f.read())
@@ -113,7 +124,7 @@ def build() -> str:
                 obj = f"{tmp}.{os.path.basename(src)}.o"
                 objs.append(obj)
                 procs.append((src, subprocess.Popen(
-                    [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                    [nvcc, *_flags(), "-c", "-o", obj, src],
                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                 )))
             failed = []
@@ -123,7 +134,7 @@ def build() -> str:
                     failed.append(f"{os.path.basename(src)} ({proc.returncode}):\n{log}")
             if failed:
                 raise RuntimeError("nvcc failed: " + "\n".join(failed))
-            res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+            res = subprocess.run([nvcc, *_flags(), "-shared", "-o", tmp, *objs],
                                  capture_output=True, text=True)
             for obj in objs:
                 os.remove(obj)
@@ -145,7 +156,7 @@ def lib():
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = RESTYPES.get(name, ctypes.c_int)
             _lib = handle
         return _lib
 

@@ -22,7 +22,9 @@ Returns ``z_sum`` (B, N, 416) and ``at_wt`` (B, N, V*S) f32, ``at_wt``'s
 last axis ordered ``v*S + s``.  Forward only.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises.
+launches the kernel or raises.  The kernel computes W1 once a ray into a
+device scratch slot per block (``scratch_bytes``: ~73 MB at S 64 on 132
+SMs), which the wrapper allocates for each call.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ NZ = 416
 
 
 RAY_BLOCK = 4096
+MAX_TOKENS = 1024      # V*S a ray: the kernel keeps a ray's logits in shared memory
 
 
 def render_core_plain(samples_p, pt_p, samples_s, pt_s, lc, *weights, S: int, V: int, n_rays: int):
@@ -128,22 +131,38 @@ def render_core(samples_p, pt_p, samples_s, pt_s, lc, w1, w1b, fka, fkb, fk_bias
     for x in (*samples_p, *samples_s):
         if x.dtype != torch.bfloat16 or not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError("samples must be contiguous, 16-byte aligned bf16")
+    if V * S > MAX_TOKENS:
+        raise ValueError(f"the kernel takes at most {MAX_TOKENS} tokens a ray (V*S), got {V * S}")
 
     def bf(x):
         return x.to(torch.bfloat16).contiguous()
 
-    # the converted operands stay referenced until the launch is enqueued
+    # the converted operands stay referenced until the launch is enqueued;
+    # W1's matmul rows, fka and fkb go K-major (transposed) for wgmma
     ops = (*samples_p, bf(pt_p), *samples_s, bf(pt_s), bf(lc),
-           bf(w1), _f32(w1b), bf(fka), bf(fkb), _f32(fk_bias), _wt(wk2), _f32(bk2), _wt(wq), _f32(bq),
-           _wt(wq2), _f32(bq2), bf(wra), _wt(wrb), _f32(brr), _wt(wr2), _f32(br2), bf(wenc), _f32(benc),
-           bf(flva), bf(flvb), _f32(flv_bias))
+           _wt(w1[:K]), _f32(_bf(w1[K:K + 3])), _f32(w1b), _wt(fka), _wt(fkb), _f32(fk_bias), _wt(wk2), _f32(bk2),
+           _wt(wq), _f32(bq), _wt(wq2), _f32(bq2), bf(wra), _wt(wrb), _f32(brr), _wt(wr2), _f32(br2), bf(wenc),
+           _f32(benc), bf(flva), bf(flvb), _f32(flv_bias))
     z_sum = torch.empty((B, N, NZ), dtype=torch.float32, device=device)
     at_wt = torch.empty((B, N, V * S), dtype=torch.float32, device=device)
-    code = _build.lib().k6_render_core(*(t.data_ptr() for t in ops), z_sum.data_ptr(), at_wt.data_ptr(),
-                                       B, V, S, N, _build.stream_of(z_sum))
+    with torch.cuda.device(device):
+        nbytes = scratch_bytes(B, V, S, N)
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=device)
+        code = _build.lib().k6_render_core(*(t.data_ptr() for t in ops), z_sum.data_ptr(), at_wt.data_ptr(),
+                                           scratch.data_ptr(), nbytes, B, V, S, N, _build.stream_of(z_sum))
     _build.check(code, "k6_render_core")
     render_core.launches += 1
     return z_sum, at_wt
+
+
+def scratch_bytes(B: int, V: int, S: int, N: int) -> int:
+    """Device scratch of one ``render_core`` launch on the current card: a
+    slot per block (one block per SM, at most one per ray) holding the
+    ray's rounded pre-activations and key partials."""
+    n = _build.lib().k6_scratch_bytes(B, V, S, N)
+    if n < 0:
+        raise RuntimeError("k6_scratch_bytes: no CUDA device")
+    return n
 
 
 render_core.launches = 0

@@ -108,9 +108,13 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B, S, N", [(1, 64, 256), (2, 4, 24), (1, 3, 5), (1, 20, 70)])
+@pytest.mark.parametrize("B, S, N", [(1, 64, 256), (2, 4, 24), (1, 3, 5), (1, 20, 70), (1, 80, 33), (2, 16, 13)])
 def test_render_core_kernel_matches_plain(cuda, B, S, N):
-    """V*S of 128 (the main path's), 8, 6 and 40 tokens a ray (ragged 32-token chunks)."""
+    """V*S of 128 (the main path's: one 128-token tile a sample set), 8, 6
+    and 40 tokens a ray (one ragged tile, the rows past V*S masked), 160
+    (two tiles a set, the second ragged), and 32 at B 2 with N 13 (the
+    rays of the second batch row, and a ray stride that is no multiple of
+    8)."""
     tok, w = make_inputs(np.random.default_rng(S * N), B, 2, S, N)
     n = rc.render_core.launches
     got = run_port(tok, w, S, 2, N, cuda)
@@ -124,3 +128,15 @@ def test_render_core_kernel_matches_plain(cuda, B, S, N):
                                [t(x).bfloat16() for x in tok["samples_s"]], t(tok["pt_s"]), t(tok["lc"]),
                                *(t(w[k]) for k, _ in WEIGHTS), S=S, V=2, n_rays=N)
     check(got, [r.cpu().numpy() for r in ref])
+
+
+@pytest.mark.cuda
+def test_render_core_kernel_rejects_too_many_tokens(cuda):
+    """The kernel keeps a ray's logits in shared memory: past MAX_TOKENS
+    tokens a ray (V*S) the wrapper raises before launching."""
+    S = rc.MAX_TOKENS // 2 + 1
+    tok, w = make_inputs(np.random.default_rng(3), 1, 2, S, 1)
+    n = rc.render_core.launches
+    with pytest.raises(ValueError, match="tokens a ray"):
+        run_port(tok, w, S, 2, 1, cuda)
+    assert rc.render_core.launches == n
