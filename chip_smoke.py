@@ -593,11 +593,6 @@ def close_at(got: torch.Tensor, ref: torch.Tensor, max_rel: float, mean_rel: flo
 K7_WEIGHTS = (("fk_bias", (128,)), ("wk2", (128, 128)), ("bk2", (128,)), ("wq", (16, 128)), ("bq", (128,)),
               ("wq2", (128, 128)), ("bq2", (128,)), ("wra", (128, 128)), ("wrb", (16, 128)), ("br", (128,)),
               ("wr2", (128, 128)), ("br2", (128,)))
-K6_WEIGHTS = (("w1", (835, 832)), ("w1b", (832,)), ("fka", (832, 128)), ("fkb", (832, 128)), ("fk_bias", (128,)),
-              ("wk2", (128, 128)), ("bk2", (128,)), ("wq", (16, 128)), ("bq", (128,)), ("wq2", (128, 128)),
-              ("bq2", (128,)), ("wra", (128, 128)), ("wrb", (16, 128)), ("brr", (128,)), ("wr2", (128, 128)),
-              ("br2", (128,)), ("wenc", (416, 128)), ("benc", (128,)), ("flva", (832, 416)), ("flvb", (832, 416)),
-              ("flv_bias", (416,)))
 
 
 def phase_fusion_kernels(dev, summary, gen) -> bool:
@@ -653,22 +648,14 @@ def phase_fusion_kernels(dev, summary, gen) -> bool:
     # K6: one single-stage chunk, samples as K1 gives them (relu'd latents),
     # then a chunk of V*S 160 (two 128-token tiles a sample set, the second
     # ragged) against the plain version only
-    V = 2
-    w = scaled_weights(K6_WEIGHTS, gen, dev)
+    from coponerf_tpu_torch.bench_kernels import render_core_inputs
 
-    def k6_inputs(S, N):
-        T = S * N
-        sp = [torch.relu(torch.randn(V, T, c, device=dev, generator=gen)).bfloat16() for c in (256, 256, 256, 64)]
-        ss = [torch.relu(torch.randn(V, T, c, device=dev, generator=gen)).bfloat16() for c in (256, 256, 256, 64)]
-        ptp = torch.randn(V, T, 3, device=dev, generator=gen) * 3
-        pts = torch.randn(V, T, 3, device=dev, generator=gen) * 3
-        lc = torch.randn(V, T, 16, device=dev, generator=gen).bfloat16()
-        return (sp, ptp, ss, pts, lc, *(w[k] for k, _ in K6_WEIGHTS))
+    V = 2
 
     def k6_check(args, S, N):
         with torch.no_grad():
-            z, at = rc.render_core(*args, S, V, N)
-            pz, pat = rc.render_core_plain(*args, S=S, V=V, n_rays=N)
+            z, at = rc.render_core(*args)
+            pz, pat = rc.render_core_plain(*args[:-3], S=S, V=V, n_rays=N)
         zmx, zmn, ztop, zgood = close_at(z, pz, 3e-3, 1e-4)
         da = (at - pat).abs()
         amx, amn = da.max().item(), da.mean().item()
@@ -678,18 +665,18 @@ def phase_fusion_kernels(dev, summary, gen) -> bool:
                 good, max(zmx, amx))
 
     S = 64
-    args = k6_inputs(S, N)
+    args = render_core_inputs(dev, S, V, N)
     msg, good, err = k6_check(args, S, N)
     ok &= good
-    ms = cuda_ms(lambda: rc.render_core(*args, S, V, N), reps=3, inner=1)
-    pms = cuda_ms(lambda: rc.render_core_plain(*args, S=S, V=V, n_rays=N), reps=1, inner=1)
+    ms = cuda_ms(lambda: rc.render_core(*args), reps=3, inner=1)
+    pms = cuda_ms(lambda: rc.render_core_plain(*args[:-3], S=S, V=V, n_rays=N), reps=1, inner=1)
     tok = V * S * N
     flops = (2 * tok * 2 * 835 * 832 + 2 * tok * 2 * 832 * 128           # W1 on both sets, the key folds
              + tok * 2 * (3 * 128 * 128 + 2 * 16 * 128)                 # kv, ce, qre chains
              + 2 * 2 * tok * 2 * 832                                    # both rounds' weighted sums
              + N * 2 * (2 * 2 * 832 * 416 + 416 * 128 + 128 * 128))     # value, ze, ze @ wra per ray
     nbytes = (2 * tok * 832 * 2 + 2 * tok * 3 * 2 + tok * 16 * 2 + N * (416 + V * S) * 4
-              + sum(x.numel() for x in w.values()) * 2)
+              + sum(x.numel() for x in args[5:-3]) * 2)
     bms, bby = bound(nbytes, flops, BF16_FLOPS)
     log(f"[kernels] K6 render_core B=1 V={V} S={S} N={N}: {msg}; kernel {ms:.3f} ms "
         f"({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s of the {flops:.3g} the function needs), plain {pms:.3f} ms, "
@@ -699,7 +686,7 @@ def phase_fusion_kernels(dev, summary, gen) -> bool:
     del args
     torch.cuda.empty_cache()
     S, N2 = 80, 4096
-    msg, good, _ = k6_check(k6_inputs(S, N2), S, N2)
+    msg, good, _ = k6_check(render_core_inputs(dev, S, V, N2, seed=1), S, N2)
     ok &= good
     log(f"[kernels] K6 render_core B=1 V={V} S={S} N={N2} (V*S 160: two tiles a sample set): {msg}")
     torch.cuda.empty_cache()

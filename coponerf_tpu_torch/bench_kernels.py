@@ -133,17 +133,18 @@ def time_split_dense(dev) -> dict:
     return out
 
 
-def render_core_inputs(dev, S: int = 64, V: int = 2, N: int = CHUNK):
+def render_core_inputs(dev, S: int = 64, V: int = 2, N: int = CHUNK, seed: int = 0):
     """Seeded arguments of ``render_core`` on one single-stage chunk: the two
     sample sets (relu'd latents, as the sampler gives them), positions,
-    local coordinates and the 21 weights, scaled like the model's."""
-    gen = torch.Generator(device=dev).manual_seed(0)
+    local coordinates and the 21 weights, scaled like the model's
+    (matrices by 1/sqrt(fan-in), biases 0.1)."""
+    from coponerf_tpu_torch.ops.render_core import SPLITS, WEIGHT_SHAPES
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
     T = S * N
-    shapes = ((835, 832), (832,), (832, 128), (832, 128), (128,), (128, 128), (128,), (16, 128), (128,),
-              (128, 128), (128,), (128, 128), (16, 128), (128,), (128, 128), (128,), (416, 128), (128,),
-              (832, 416), (832, 416), (416,))
-    w = [torch.randn(*sh, device=dev, generator=gen) * (0.1 if len(sh) == 1 else sh[0] ** -0.5) for sh in shapes]
-    sets = [[torch.relu(torch.randn(V, T, c, device=dev, generator=gen)).bfloat16() for c in (256, 256, 256, 64)]
+    w = [torch.randn(*sh, device=dev, generator=gen) * (0.1 if len(sh) == 1 else sh[0] ** -0.5)
+         for _, sh in WEIGHT_SHAPES]
+    sets = [[torch.relu(torch.randn(V, T, c, device=dev, generator=gen)).bfloat16() for c in SPLITS]
             for _ in range(2)]
     pt = [torch.randn(V, T, 3, device=dev, generator=gen) * 3 for _ in range(2)]
     lc = torch.randn(V, T, 16, device=dev, generator=gen).bfloat16()

@@ -49,11 +49,12 @@
 // the value product for z1; ze and ze @ wra split over all 256 threads;
 // the round-2 chain, its softmax, the round-2 sums and the value product
 // for z_sum + V * z1.
-// What holds it back (k6_phases.py on an H100 SXM at 700 W): the tail
-// leaves the tensor cores idle for more than half of a chunk's ~80 ms;
-// within it the two chains (8 warps, one tile each, their 128 x 128
-// weights from L2) and the per-ray value products (flva and flvb, 1.4 MB,
-// streamed twice a ray, near the L2's rate when every SM streams them).
+// What holds it back (a clock probe of each step on an H100 SXM at 700 W,
+// PERF.md): the tail leaves the tensor cores idle for more than half of a
+// chunk's ~80 ms; within it the two chains (8 warps, one tile each, their
+// 128 x 128 weights from L2) and the per-ray value products (flva and
+// flvb, 1.4 MB, streamed twice a ray, near the L2's rate when every SM
+// streams them).
 
 #include <math.h>
 
@@ -140,21 +141,6 @@ struct Params {
   float* atwt;         // (B, N, V*S)
   int B, V, S, N;
 };
-
-// Built with -DK6_PHASES (coponerf_tpu_torch/k6_phases.py), thread 0 of
-// each block adds the SM clocks of each step of a ray to k6_phase_clocks,
-// right after the consumers' barrier that ends the step.
-#ifdef K6_PHASES
-__device__ unsigned long long k6_phase_clocks[10];
-#define PHASE_END(i)                                \
-  if (tid == 0) {                                   \
-    const long long t_ = clock64();                 \
-    atomicAdd(&k6_phase_clocks[i], t_ - t_prev);    \
-    t_prev = t_;                                    \
-  }
-#else
-#define PHASE_END(i)
-#endif
 
 __device__ __forceinline__ float bfr(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 
@@ -353,9 +339,6 @@ __global__ void __launch_bounds__(THREADS, 1) render_core_kernel(const __grid_co
   float* keys = reinterpret_cast<float*>(slot + 2 * static_cast<size_t>(vsp) * NO);
   int stage = 0;
   uint32_t phase = 0;
-#ifdef K6_PHASES
-  long long t_prev = clock64();
-#endif
 
   // the tail's ring slices: wait for the next one; hand it back once every
   // lane of the warp has read it
@@ -561,7 +544,6 @@ __global__ void __launch_bounds__(THREADS, 1) render_core_kernel(const __grid_co
     // stores, then let the producer load them
     asm volatile("fence.proxy.async.global;\n" ::: "memory");
     consumers_sync();
-    PHASE_END(0)
     if (tid == 0) mbar_arrive(slot_ready);
 
     // ---------------- phase B: the round-1 logits, a 16-token tile a warp
@@ -595,18 +577,14 @@ __global__ void __launch_bounds__(THREADS, 1) render_core_kernel(const __grid_co
       }
     }
     consumers_sync();
-    PHASE_END(1)
     if (cw == 0) softmax(lg1, VS, p.atwt + ray * VS, lane);
     consumers_sync();
     flip_weights(lg1);
     consumers_sync();
-    PHASE_END(2)
     weighted_sums(lg1);
     consumers_sync();
-    PHASE_END(3)
     values(z1, nullptr, 0.f);
     consumers_sync();
-    PHASE_END(4)
     small_product(z1, NZ, p.wenc, red);
     consumers_sync();
     if (tid < HK) ze[tid] = sum16(red, tid) + p.benc[tid];
@@ -615,7 +593,6 @@ __global__ void __launch_bounds__(THREADS, 1) render_core_kernel(const __grid_co
     consumers_sync();
     if (tid < HK) zw[tid] = sum16(red, tid);
     consumers_sync();
-    PHASE_END(5)
 
     // ---------------- round-2 logits: 16-token tiles over the warps
     for (int q = cw; q * 16 < VS; q += CONSUMERS / 32) {
@@ -641,40 +618,20 @@ __global__ void __launch_bounds__(THREADS, 1) render_core_kernel(const __grid_co
       }
     }
     consumers_sync();
-    PHASE_END(6)
     if (cw == 0) softmax(lg2, VS, nullptr, lane);
     consumers_sync();
     flip_weights(lg2);
     consumers_sync();
-    PHASE_END(7)
     weighted_sums(lg2);
     consumers_sync();
-    PHASE_END(8)
     // every slot read of this ray has completed (the ring's full barriers),
     // so the next ray's stores may follow
     values(p.zsum + ray * NZ, z1, static_cast<float>(V));
-#ifdef K6_PHASES
-    consumers_sync();
-#endif
-    PHASE_END(9)
   }
 }
 
 }  // namespace rc
 }  // namespace coponerf
-
-// Sample sets p and s: four level tensors (B*V, S*N, {256, 256, 256, 64})
-// and pt (B*V, S*N, 3), bf16, sample-major; the s rows view-flipped.  lc
-// (B*V, S*N, 16) bf16.  w1t: W1's first 832 rows transposed (832 x 832,
-// bf16); wt3: its three tanh rows (3 x 832, f32); fkat, fkbt: fka and fkb
-// transposed (128 x 832, bf16); the chain weights transposed (out x in),
-// bf16; biases f32.  Outputs f32: z_sum (B, N, 416), at_wt (B, N, V*S).
-// scratch: k6_scratch_bytes(B, V, S, N) bytes of device memory.
-#ifdef K6_PHASES
-extern "C" int k6_phase_clocks(unsigned long long* out) {
-  return static_cast<int>(cudaMemcpyFromSymbol(out, coponerf::rc::k6_phase_clocks, sizeof(coponerf::rc::k6_phase_clocks)));
-}
-#endif
 
 extern "C" long long k6_scratch_bytes(int B, int V, int S, int N) {
   using namespace coponerf::rc;
@@ -686,6 +643,16 @@ extern "C" long long k6_scratch_bytes(int B, int V, int S, int N) {
   return (rays < sms ? rays : sms) * static_cast<long long>(slot_bytes(vsp));
 }
 
+// V * S a ray that k6_render_core takes (its logit rows live in shared memory)
+extern "C" int k6_max_tokens() { return coponerf::rc::MAX_TOKENS; }
+
+// Sample sets p and s: four level tensors (B*V, S*N, {256, 256, 256, 64})
+// and pt (B*V, S*N, 3), bf16, sample-major; the s rows view-flipped.  lc
+// (B*V, S*N, 16) bf16.  w1t: W1's first 832 rows transposed (832 x 832,
+// bf16); wt3: its three tanh rows (3 x 832, f32); fkat, fkbt: fka and fkb
+// transposed (128 x 832, bf16); the chain weights transposed (out x in),
+// bf16; biases f32.  Outputs f32: z_sum (B, N, 416), at_wt (B, N, V*S).
+// scratch: k6_scratch_bytes(B, V, S, N) bytes of device memory.
 extern "C" int k6_render_core(const void* s0p, const void* s1p, const void* s2p, const void* scp,
                               const void* ptp, const void* s0s, const void* s1s, const void* s2s,
                               const void* scs, const void* pts, const void* lc, const void* w1t,

@@ -68,18 +68,14 @@ SIGNATURES = {
     "k6_render_core": [P] * 36 + [L, I, I, I, I, P],
     # B, V, S, N -> scratch bytes of one k6_render_core launch on the current device
     "k6_scratch_bytes": [I, I, I, I],
+    # -> the most tokens a ray (V*S) that k6_render_core takes
+    "k6_max_tokens": [],
 }
 RESTYPES = {"k6_scratch_bytes": ctypes.c_longlong}
 
 _lock = threading.Lock()
 _lib = None
 build_seconds = None
-
-
-def _flags():
-    """NVCC_FLAGS plus any in $COPONERF_NVCC_EXTRA (space-separated, e.g.
-    ``-DK6_PHASES`` for ``k6_phases.py``); the library's name hashes them."""
-    return NVCC_FLAGS + os.environ.get("COPONERF_NVCC_EXTRA", "").split()
 
 
 def _sources():
@@ -99,7 +95,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    h = hashlib.sha256(" ".join(_flags()).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _sources():
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + f.read())
@@ -124,7 +120,7 @@ def build() -> str:
                 obj = f"{tmp}.{os.path.basename(src)}.o"
                 objs.append(obj)
                 procs.append((src, subprocess.Popen(
-                    [nvcc, *_flags(), "-c", "-o", obj, src],
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                 )))
             failed = []
@@ -134,7 +130,7 @@ def build() -> str:
                     failed.append(f"{os.path.basename(src)} ({proc.returncode}):\n{log}")
             if failed:
                 raise RuntimeError("nvcc failed: " + "\n".join(failed))
-            res = subprocess.run([nvcc, *_flags(), "-shared", "-o", tmp, *objs],
+            res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
                                  capture_output=True, text=True)
             for obj in objs:
                 os.remove(obj)

@@ -41,7 +41,12 @@ NZ = 416
 
 
 RAY_BLOCK = 4096
-MAX_TOKENS = 1024      # V*S a ray: the kernel keeps a ray's logits in shared memory
+K = sum(SPLITS)
+# the weights after the token tensors, in argument order, with their shapes
+WEIGHT_SHAPES = (("w1", (K + 3, K)), ("w1b", (K,)), ("fka", (K, H)), ("fkb", (K, H)), ("fk_bias", (H,)),
+                 ("wk2", (H, H)), ("bk2", (H,)), ("wq", (L, H)), ("bq", (H,)), ("wq2", (H, H)), ("bq2", (H,)),
+                 ("wra", (H, H)), ("wrb", (L, H)), ("brr", (H,)), ("wr2", (H, H)), ("br2", (H,)),
+                 ("wenc", (NZ, H)), ("benc", (H,)), ("flva", (K, NZ)), ("flvb", (K, NZ)), ("flv_bias", (NZ,)))
 
 
 def render_core_plain(samples_p, pt_p, samples_s, pt_s, lc, *weights, S: int, V: int, n_rays: int):
@@ -116,23 +121,17 @@ def render_core(samples_p, pt_p, samples_s, pt_s, lc, w1, w1b, fka, fkb, fk_bias
     for x, c in [*zip(samples_p, SPLITS), *zip(samples_s, SPLITS), (pt_p, 3), (pt_s, 3), (lc, L)]:
         if tuple(x.shape) != (R, T, c):
             raise ValueError(f"token tensor of shape {tuple(x.shape)}, expected {(R, T, c)}")
-    K = sum(SPLITS)
-    weights = [("w1", w1, (K + 3, K)), ("w1b", w1b, (K,)), ("fka", fka, (K, H)), ("fkb", fkb, (K, H)),
-               ("fk_bias", fk_bias, (H,)), ("wk2", wk2, (H, H)), ("bk2", bk2, (H,)), ("wq", wq, (L, H)),
-               ("bq", bq, (H,)), ("wq2", wq2, (H, H)), ("bq2", bq2, (H,)), ("wra", wra, (H, H)),
-               ("wrb", wrb, (L, H)), ("brr", brr, (H,)), ("wr2", wr2, (H, H)), ("br2", br2, (H,)),
-               ("wenc", wenc, (NZ, H)), ("benc", benc, (H,)), ("flva", flva, (K, NZ)), ("flvb", flvb, (K, NZ)),
-               ("flv_bias", flv_bias, (NZ,))]
-    _check_weights(weights)
-    ws = [w for _, w, _ in weights]
+    ws = [w1, w1b, fka, fkb, fk_bias, wk2, bk2, wq, bq, wq2, bq2, wra, wrb, brr, wr2, br2, wenc, benc, flva, flvb,
+          flv_bias]
+    _check_weights([(name, w, shape) for (name, shape), w in zip(WEIGHT_SHAPES, ws)])
     device = _device((*samples_p, *samples_s, pt_p, pt_s, lc, *ws))
     if device.type == "cpu":
         return render_core_plain(samples_p, pt_p, samples_s, pt_s, lc, *ws, S=S, V=V, n_rays=n_rays)
     for x in (*samples_p, *samples_s):
         if x.dtype != torch.bfloat16 or not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError("samples must be contiguous, 16-byte aligned bf16")
-    if V * S > MAX_TOKENS:
-        raise ValueError(f"the kernel takes at most {MAX_TOKENS} tokens a ray (V*S), got {V * S}")
+    if V * S > max_tokens():
+        raise ValueError(f"the kernel takes at most {max_tokens()} tokens a ray (V*S), got {V * S}")
 
     def bf(x):
         return x.to(torch.bfloat16).contiguous()
@@ -153,6 +152,12 @@ def render_core(samples_p, pt_p, samples_s, pt_s, lc, w1, w1b, fka, fkb, fk_bias
     _build.check(code, "k6_render_core")
     render_core.launches += 1
     return z_sum, at_wt
+
+
+def max_tokens() -> int:
+    """The most tokens a ray (V*S) the kernel takes: it keeps a ray's logits
+    in shared memory."""
+    return _build.lib().k6_max_tokens()
 
 
 def scratch_bytes(B: int, V: int, S: int, N: int) -> int:

@@ -1,10 +1,10 @@
 """The port runs without JAX: an inference render (also with both
 ``render(fusion=...)`` options), a train step, the latter also with
 ``fused_argmax=True``, the evaluation layer (harness, metrics, overlap,
-scene readers, loader, the ``test`` entry), the kernel bench and K6's
-step breakdown load no module of ``jax``, ``flax`` or the JAX package
-``coponerf_tpu``.  On CPU tensors its kernel wrappers take the plain
-versions without counting a launch."""
+scene readers, loader, the ``test`` entry) and the sampler bench load no
+module of ``jax``, ``flax`` or the JAX package ``coponerf_tpu``.  On CPU
+tensors its kernel wrappers take the plain versions without counting a
+launch."""
 
 import dataclasses
 import os
@@ -37,7 +37,6 @@ torch.set_num_threads(2)
 import coponerf_tpu_torch
 import coponerf_tpu_torch.test
 import coponerf_tpu_torch.bench_kernels
-import coponerf_tpu_torch.k6_phases
 from coponerf_tpu_torch.config import Config, LossConfig, ModelConfig, TrainConfig
 from coponerf_tpu_torch.data import acid, loader, realestate, scene_dataset
 from coponerf_tpu_torch.eval import harness, metrics, overlap

@@ -98,6 +98,33 @@ def test_render_core_cpu_counts_no_launch():
     assert rc.render_core.launches == before
 
 
+def test_render_core_bench_inputs_match_jax():
+    """``bench_kernels.render_core_inputs``, which the chip smoke's K6 phase
+    and the kernel bench call, builds the arguments in the wrapper's
+    order and shapes (``WEIGHT_SHAPES``, the JAX kernel's weights): at a
+    small size they go through the port as through JAX's kernel.  A
+    weight of another shape is refused."""
+    from coponerf_tpu_torch.bench_kernels import render_core_inputs
+
+    assert rc.WEIGHT_SHAPES == WEIGHTS
+    S, V, N = 4, 2, 8
+    args = render_core_inputs(torch.device("cpu"), S, V, N)
+    assert args[-3:] == (S, V, N)
+    got = rc.render_core(*args)
+
+    def j(x):
+        return jnp.asarray(x.float().numpy()).astype(jnp.bfloat16 if x.dtype == torch.bfloat16 else jnp.float32)
+
+    ref = jax_render_core([j(x) for x in args[0]], j(args[1]), [j(x) for x in args[2]], j(args[3]), j(args[4]),
+                          *(j(x) for x in args[5:-3]), S=S, V=V, n_rays=N)
+    check(got, ref)
+    np.testing.assert_allclose(got[1].numpy().sum(-1), 1.0, atol=1e-5)
+    bad = list(args)
+    bad[5] = bad[5][:-1]
+    with pytest.raises(ValueError):
+        rc.render_core(*bad)
+
+
 # ------------------------------------------- kernel vs plain, on the card --
 
 @pytest.fixture
@@ -132,9 +159,10 @@ def test_render_core_kernel_matches_plain(cuda, B, S, N):
 
 @pytest.mark.cuda
 def test_render_core_kernel_rejects_too_many_tokens(cuda):
-    """The kernel keeps a ray's logits in shared memory: past MAX_TOKENS
-    tokens a ray (V*S) the wrapper raises before launching."""
-    S = rc.MAX_TOKENS // 2 + 1
+    """The kernel keeps a ray's logits in shared memory: past
+    ``max_tokens()`` tokens a ray (V*S) the wrapper raises before
+    launching."""
+    S = rc.max_tokens() // 2 + 1
     tok, w = make_inputs(np.random.default_rng(3), 1, 2, S, 1)
     n = rc.render_core.launches
     with pytest.raises(ValueError, match="tokens a ray"):
