@@ -10,13 +10,22 @@ Prints one JSON line with:
 - ``stage_a``: per sample set of inference stage A (2 view rows, 16 x
   32768 points, the four render levels), ``multilevel_sample`` (K8a, one
   launch) and the four one-level ``bilinear_sample`` calls, in turns;
+- ``train_k4``: ``onehot_transpose_matmul`` (K4) at the training shape,
+  ms per call for each small level in both padding modes (bf16
+  cotangents, corners from the ray-major training points), and the six
+  calls' sum;
+- ``attn_embed``: ``round1_logits`` and ``round2_logits`` (K7a, K7b) at
+  cf[16,4]'s stage A (S 16) and stage B (S 4): 2 view rows x S x 32768
+  tokens, ms per call;
 - ``split_dense_relu``: K2 (``split_dense_relu``) at stage A (bf16,
   1,048,576 rows), the exact evaluation's shape (f32, 524,288 rows) and
   the train step's (bf16, 147,456 rows), ms per call;
 - ``render_core_chunk_ms``: ``render_core`` (K6) on one single-stage
   chunk (B 1, V 2, S 64, 32768 rays), ms per call;
-- ``render_cf16_4_ms``: one 256^2 request in the fast config (cf[16,4],
-  two 32768-ray chunks, encode excluded), ms per image;
+- ``render_cf16_4_ms`` and ``render_cf16_4_attn_embed_ms``: one 256^2
+  request in the fast config (cf[16,4], two 32768-ray chunks, encode
+  excluded), unfused and with ``fusion="attn_embed"``, in turns, ms per
+  image;
 - ``render_single_stage_ms`` and ``render_core_single_stage_ms``: the same
   request in the single-stage fast config (S 64), unfused and with
   ``fusion="render_core"``, in turns, ms per image;
@@ -34,7 +43,8 @@ such windows; the render and the evaluations are host-clock times up to
 ``torch.cuda.synchronize()`` after a warm-up call, the median of three
 (the exact evaluation: one).  Run it in two checkouts of the repo in turns
 on one card (A, B, B, A) to compare them: it uses only entry points both
-have (the samplers, ``split_dense_relu``, ``render_core``, ``encode``,
+have (the samplers, ``onehot_transpose_matmul``, ``round1_logits``,
+``round2_logits``, ``split_dense_relu``, ``render_core``, ``encode``,
 ``render``, ``evaluate`` and ``train_step``).
 """
 
@@ -114,6 +124,48 @@ def time_samplers(dev) -> dict:
     return out
 
 
+def time_k4(dev) -> dict:
+    from coponerf_tpu_torch.ops.bilinear_sample import corners_from_pixel_xy, onehot_transpose_matmul, pixel_xy
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    g = torch.randn(TRAIN_ROWS, TRAIN_RAYS * 64, 256, device=dev, generator=gen).bfloat16()
+    out = {}
+    for hw in (16, 32, 64):
+        for mode, shift in (("border", 0.0), ("zeros", 0.3)):
+            x, y = pixel_xy(train_grid(gen, dev, shift), hw, hw, mode)
+            idx, w = (t.contiguous() for t in corners_from_pixel_xy(x, y, hw, mode != "border"))
+            (out[f"{hw}x{hw}x256 {mode}"],) = cuda_ms_in_turns([lambda: onehot_transpose_matmul(g, idx, w, hw * hw)])
+    out["six_calls"] = sum(out.values())
+    return out
+
+
+def time_attn_embed(dev) -> dict:
+    from coponerf_tpu_torch.ops.attn_embed import round1_logits, round2_logits
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * scale
+
+    wq, bq = rnd(16, 128, scale=0.25), rnd(128, scale=0.1)
+    wq2, bq2 = rnd(128, 128, scale=128 ** -0.5), rnd(128, scale=0.1)
+    fkb, wk2, bk2 = rnd(128, scale=0.1), rnd(128, 128, scale=128 ** -0.5), rnd(128, scale=0.1)
+    wra, wrb, br = rnd(128, 128, scale=128 ** -0.5), rnd(16, 128, scale=0.25), rnd(128, scale=0.1)
+    wr2, br2 = rnd(128, 128, scale=128 ** -0.5), rnd(128, scale=0.1)
+    out = {}
+    for stage, S in (("stage_a", 16), ("stage_b", 4)):
+        T = S * CHUNK
+        ka, kbs = rnd(2, T, 128).bfloat16(), rnd(2, T, 128).bfloat16()
+        lc, ze = rnd(2, T, 16).bfloat16(), rnd(1, CHUNK, 128)
+        with torch.no_grad():
+            r1, r2 = cuda_ms_in_turns([
+                lambda: round1_logits(ka, kbs, lc, fkb, wk2, bk2, wq, bq, wq2, bq2),
+                lambda: round2_logits(ze, lc, wq, bq, wq2, bq2, wra, wrb, br, wr2, br2, S, 2)])
+        out[stage] = {"round1_logits": r1, "round2_logits": r2}
+        del ka, kbs, lc, ze
+    return out
+
+
 def time_split_dense(dev) -> dict:
     from coponerf_tpu_torch.ops.split_matmul import split_dense_relu
 
@@ -190,13 +242,18 @@ def time_render_and_eval(dev) -> dict:
     with torch.no_grad():
         state = model.encode(batch)
 
-        def render():
+        def render(fusion=None):
             for lo in range(0, IMAGE * IMAGE, CHUNK):
                 q = dict(batch["query"], uv=batch["query"]["uv"][:, :, lo: lo + CHUNK],
                          rgb=batch["query"]["rgb"][:, :, lo: lo + CHUNK])
-                model.render({"context": batch["context"], "query": q}, state, val=True)
+                model.render({"context": batch["context"], "query": q}, state, val=True, fusion=fusion)
 
-        render_ms = host_ms(render)
+        render(None)
+        render("attn_embed")
+        cf_times = {None: [], "attn_embed": []}
+        for r in range(3):               # in turns, the order reversed every other round
+            for fusion in ((None, "attn_embed") if r % 2 == 0 else ("attn_embed", None)):
+                cf_times[fusion].append(host_ms(lambda: render(fusion), reps=1))
     single = CoPoNeRF(dataclasses.replace(cfg, coarse_samples=0, fine_samples=0), image_size=IMAGE).eval()
     single.load_state_dict(model.state_dict())
     single = single.to(dev)
@@ -228,7 +285,9 @@ def time_render_and_eval(dev) -> dict:
                                       image_size=IMAGE).eval(), seed=0).to(dev)
         exact_ms = host_ms(lambda: evaluate(exact, [item], batch_size=1, chunk=4096, image_size=IMAGE,
                                             verbose=False), reps=1)
-    return {"render_cf16_4_ms": render_ms, "render_single_stage_ms": statistics.median(times[None]),
+    return {"render_cf16_4_ms": statistics.median(cf_times[None]),
+            "render_cf16_4_attn_embed_ms": statistics.median(cf_times["attn_embed"]),
+            "render_single_stage_ms": statistics.median(times[None]),
             "render_core_single_stage_ms": statistics.median(times["render_core"]),
             "eval_single_stage_ms": eval_ms, "eval_exact_ms": exact_ms}
 
@@ -281,6 +340,9 @@ def main() -> int:
 
     _build.lib()
     result = {"device": torch.cuda.get_device_name(0), **time_samplers(dev)}
+    torch.cuda.empty_cache()
+    result["train_k4"] = time_k4(dev)
+    result["attn_embed"] = time_attn_embed(dev)
     torch.cuda.empty_cache()
     result["split_dense_relu"] = time_split_dense(dev)
     torch.cuda.empty_cache()

@@ -53,15 +53,15 @@ SIGNATURES = {
     "k2_split_dense_relu": [P] * 11 + [L, I, I, I, I, I, P],
     # pre, w, out, R, V, S, N, C, dtype, stream
     "k3_weighted_sum": [P, P, P, I, I, I, I, I, I, P],
-    # g, idx, w, out (f32, zeroed), B, P, HW, C, g dtype, stream
-    "k4_transpose_sample": [P, P, P, P, I, L, I, I, I, P],
+    # g, idx, w, perm (i32 scratch, B x P), out (f32, zeroed), B, P, HW, C, g dtype, stream
+    "k4_transpose_sample": [P, P, P, P, P, I, I, I, I, I, P],
     # c, xs, ys, xq, yq, rowp, colp (scratch), row, col, B, Q, S, nSB, nQB, beta, stream
     "k5_soft_argmax_stats": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, D, P],
     # c, rowf, colf, dr, dcol, xs, ys, xq, yq, out, B, Q, S, beta, stream
     "k5_soft_argmax_bwd": [P, P, P, P, P, P, P, P, P, P, I, I, I, D, P],
     # ka, kbs, lc, fkb, wk2t, bk2, wqt, bq, wq2t, bq2, out, tokens, stream
     "k7_round1_logits": [P] * 11 + [L, P],
-    # ze, lc, wqt, bq, wq2t, bq2, wrat, wrbt, br, wr2t, br2, out, B, V, S, N, stream
+    # ze, lc, wq, bq, wq2, bq2, wra, wrb, br, wr2, br2 (weights (in, out) f32), out, B, V, S, N, stream
     "k7_round2_logits": [P] * 12 + [I, I, I, I, P],
     # 4 p levels, pt_p, 4 s levels, pt_s, lc, 22 weights and biases (W1 split into its transposed
     # matmul rows and its tanh rows), z_sum, at_wt, scratch, scratch bytes, B, V, S, N, stream

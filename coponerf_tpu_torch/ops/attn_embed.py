@@ -125,8 +125,9 @@ def round2_logits(ze, lc, wq, bq, wq2, bq2, wra, wrb, br, wr2, br2, S: int, V: i
     device = _device(args)
     if device.type == "cpu":
         return round2_logits_plain(*args, S, V)
-    ops = (ze.float().contiguous(), lc.to(torch.bfloat16).contiguous(), _wt(wq), _f32(bq), _wt(wq2), _f32(bq2),
-           _wt(wra), _wt(wrb), _f32(br), _wt(wr2), _f32(br2))
+    # the kernel rounds the (in, out) f32 weights to bf16 as it stages them
+    ops = (ze.float().contiguous(), lc.to(torch.bfloat16).contiguous(),
+           *(_f32(t) for t in (wq, bq, wq2, bq2, wra, wrb, br, wr2, br2)))
     out = torch.empty((B * V, S * N), dtype=torch.float32, device=device)
     code = _build.lib().k7_round2_logits(*(t.data_ptr() for t in ops), out.data_ptr(), B, V, S, N,
                                          _build.stream_of(ze))

@@ -300,11 +300,16 @@ def onehot_transpose_matmul(g: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
         return onehot_transpose_matmul_plain(g, idx, w, HW)
     if not (g.is_contiguous() and idx.is_contiguous() and w.is_contiguous()):
         raise ValueError("g, idx and w must be contiguous")
-    if idx.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("idx and w must be 16-byte aligned")
+    if g.data_ptr() % 16 or idx.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("g, idx and w must be 16-byte aligned")
+    if C % 8:
+        raise ValueError(f"channel rows must be a multiple of 8, got C={C}")
+    if P >= 2 ** 31:
+        raise ValueError(f"K4 indexes points in 32 bits, got P={P}")
     out = torch.zeros((B, HW, C), dtype=torch.float32, device=g.device)
+    perm = torch.empty((B, P), dtype=torch.int32, device=g.device)  # the points' order by cell
     code = _build.lib().k4_transpose_sample(
-        g.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(), B, P, HW, C,
+        g.data_ptr(), idx.data_ptr(), w.data_ptr(), perm.data_ptr(), out.data_ptr(), B, P, HW, C,
         _DTYPES[g.dtype], _build.stream_of(g),
     )
     _build.check(code, "k4_transpose_sample")

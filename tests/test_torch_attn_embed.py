@@ -70,7 +70,7 @@ def test_round1_logits_matches_jax(R, T):
     _close(got, ref)
 
 
-@pytest.mark.parametrize("B, V, S, N", [(1, 2, 4, 1024), (2, 2, 3, 300), (1, 2, 2, 2053)])
+@pytest.mark.parametrize("B, V, S, N", [(1, 2, 4, 1024), (2, 2, 3, 300), (1, 2, 2, 2053), (2, 2, 4, 777)])
 def test_round2_logits_matches_jax(B, V, S, N):
     rng = np.random.default_rng(N)
     ze = jnp.asarray(rng.standard_normal((B, N, H)).astype(np.float32))
@@ -126,9 +126,11 @@ def test_round1_kernel_matches_plain(cuda, T):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B, S, N", [(1, 16, 4096), (2, 4, 1000), (1, 3, 7)])
+@pytest.mark.parametrize("B, S, N", [(1, 16, 4096), (2, 4, 1000), (1, 3, 7), (1, 4, 32768), (2, 4, 4097)])
 def test_round2_kernel_matches_plain(cuda, B, S, N):
-    """Same bf16 operands, f32 sums in another order (module docstring)."""
+    """Same bf16 operands, f32 sums in another order (module docstring).
+    The kernel takes 64 rays a warpgroup: (1, 4, 32768) is the render's
+    stage B, (2, 4, 4097) and (2, 4, 1000) end in a partial 64-ray unit."""
     g = torch.Generator().manual_seed(N)
     ze = torch.randn(B, N, H, generator=g).to(cuda)
     lc = torch.randn(2 * B, S * N, L, generator=g).to(cuda)

@@ -101,6 +101,31 @@ def test_k4_plain_matches_jax_kernel(mode):
         assert _rel_max(got, ref) < 1e-2
 
 
+@pytest.mark.parametrize("case", ["g_dtype", "g_rank", "idx_dtype", "w_dtype", "idx_shape", "w_rows"])
+def test_k4_wrapper_refuses_bad_inputs(case):
+    """The wrapper's checks, which run before it picks the plain version or
+    the kernel: wrong dtypes (TypeError) and shapes (ValueError)."""
+    B, P, C, HW = 2, 50, 16, 64
+    g = torch.randn(B, P, C)
+    idx = torch.randint(-1, HW, (B, P, 4), dtype=torch.int32)
+    w = torch.rand(B, P, 4)
+    err = ValueError
+    if case == "g_dtype":
+        g, err = g.double(), TypeError
+    elif case == "g_rank":
+        g, err = g[0], TypeError
+    elif case == "idx_dtype":
+        idx, err = idx.long(), TypeError
+    elif case == "w_dtype":
+        w, err = w.half(), TypeError
+    elif case == "idx_shape":
+        idx = idx[:, :, :3]
+    else:
+        w = w[:1]
+    with pytest.raises(err):
+        tbs.onehot_transpose_matmul(g, idx, w, HW)
+
+
 @pytest.mark.parametrize("mode", ["border", "zeros"])
 def test_k4_matches_exact_grid_sample_vjp(mode):
     """The port's table-gradient sampler against JAX's own autodiff of the
@@ -377,6 +402,67 @@ def test_k4_kernel_matches_plain(cuda, mode, hw):
             got = tbs.onehot_transpose_matmul(gc, idx.contiguous(), w.contiguous(), hw * hw)
             ref = tbs.onehot_transpose_matmul_plain(gc, idx, w, hw * hw)
             torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+
+
+def _ray_points(g, B, n_rays, S, shift, dev):
+    """Ray-major (B, n_rays * S, 2) points as training lays them out:
+    token n*S + s, each ray a segment across the image (shift moves part
+    of every segment off it)."""
+    start = torch.rand(B, n_rays, 1, 2, device=dev, generator=g) * 0.4 - 1.0 - shift
+    end = torch.rand(B, n_rays, 1, 2, device=dev, generator=g) * 0.4 + 0.6
+    t = torch.linspace(0, 1, S, device=dev)[None, None, :, None]
+    return (start + (end - start) * t).reshape(B, n_rays * S, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["border", "zeros"])
+@pytest.mark.parametrize("hw", [16, 32, 64])
+def test_k4_kernel_matches_plain_training_layout(cuda, mode, hw):
+    """K4 on ray-major training points (2 rows x 192 rays x 64 samples,
+    C 256; the kernel sorts them by cell and merges runs of 64), and on the
+    same points less 37 (a P that is no multiple of the run), bf16 and f32
+    cotangents; atomics change the f32 sum order, hence 1e-4."""
+    g = torch.Generator(device=cuda).manual_seed(100 + hw)
+    B, C = 2, 256
+    pts = _ray_points(g, B, 192, 64, 0.0 if mode == "border" else 0.3, cuda)
+    for P in (pts.shape[1], pts.shape[1] - 37):
+        x, y = tbs.pixel_xy(pts[:, :P].contiguous(), hw, hw, mode)
+        idx, w = tbs.corners_from_pixel_xy(x, y, hw, mode != "border")
+        cot = torch.randn(B, P, C, device=cuda, generator=g)
+        for gc in (cot.bfloat16(), cot):
+            n = tbs.onehot_transpose_matmul.launches
+            got = tbs.onehot_transpose_matmul(gc, idx.contiguous(), w.contiguous(), hw * hw)
+            assert tbs.onehot_transpose_matmul.launches == n + 1
+            ref = tbs.onehot_transpose_matmul_plain(gc, idx, w, hw * hw)
+            torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["border", "zeros"])
+def test_k4_kernel_matches_plain_large_table(cuda, mode):
+    """The 256^2 x 64 conv_map level (training sends it through K4 when
+    convmap_direct_grad is off): 65536 cells, which the sort bins 16 at a
+    time."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    B, C, hw = 2, 64, 256
+    pts = _ray_points(g, B, 192, 64, 0.0 if mode == "border" else 0.3, cuda)
+    x, y = tbs.pixel_xy(pts, hw, hw, mode)
+    idx, w = tbs.corners_from_pixel_xy(x, y, hw, mode != "border")
+    cot = torch.randn(B, pts.shape[1], C, device=cuda, generator=g).bfloat16()
+    got = tbs.onehot_transpose_matmul(cot, idx.contiguous(), w.contiguous(), hw * hw)
+    torch.testing.assert_close(got, tbs.onehot_transpose_matmul_plain(cot, idx, w, hw * hw), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_k4_kernel_refuses_channels_off_the_vector_width(cuda):
+    """On the card K4 takes rows of a multiple of 8 channels (16-byte
+    copies), as K1 does; other widths raise and launch nothing."""
+    idx = torch.zeros(1, 10, 4, dtype=torch.int32, device=cuda)
+    w = torch.ones(1, 10, 4, device=cuda)
+    n = tbs.onehot_transpose_matmul.launches
+    with pytest.raises(ValueError):
+        tbs.onehot_transpose_matmul(torch.randn(1, 10, 12, device=cuda), idx, w, 16)
+    assert tbs.onehot_transpose_matmul.launches == n
 
 
 @pytest.mark.cuda
