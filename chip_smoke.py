@@ -13,9 +13,9 @@ result line:
      paths' shapes: K1 (bilinear_sample, the multi-level entry with one
      level) on the three small levels in both padding modes at the
      training shape (12 rows x 12288 points), where training samples with
-     it, and its corner-id entry; K8a (multilevel_sample) on the four
-     render levels at stage A's 16 x 32768 points of both sample sets, bit
-     for bit against its plain version and the four one-level launches it
+     it (its device time under torch.profiler printed beside), and its
+     corner-id entry; K8a (multilevel_sample) on the four render levels at
+     stage A's 16 x 32768 points of both sample sets, bit for bit against its plain version and the four one-level launches it
      replaces and timed in turns with them; K8b (grid_sample_window) on the
      256^2 level in f32; K2 at every row count the paths launch (bf16:
      1048576, 262144, 4194304, 147456 and a ragged 1048539; f32, the
@@ -232,6 +232,7 @@ def train_grid(rows: int, n_rays: int, S: int, shift: float, gen: torch.Generato
 def phase_kernels(dev, summary, card: str):
     import torch.nn.functional as F
 
+    from coponerf_tpu_torch.bench_kernels import device_ms
     from coponerf_tpu_torch.ops import bilinear_sample as bs
     from coponerf_tpu_torch.ops.weighted_sum import weighted_sum_plain, weighted_sum_smaj
 
@@ -252,6 +253,8 @@ def phase_kernels(dev, summary, card: str):
             good = mx == 0.0
             ok &= good
             ms = cuda_ms(lambda: bs.bilinear_sample(table, grid, mode))
+            # diagnostic: the kernel alone, without the wrapper's host time
+            dms = device_ms(lambda: bs.bilinear_sample(table, grid, mode), "multilevel_sample_kernel", launches=1)
             pms = cuda_ms(lambda: bs.bilinear_sample_plain(table, grid, mode), reps=3, inner=1)
             nchw = table.float().permute(0, 3, 1, 2).contiguous()
             g4 = grid[:, None]
@@ -262,8 +265,9 @@ def phase_kernels(dev, summary, card: str):
                 acc[k] += v
             acc["max_abs_err"] = max(acc["max_abs_err"], mx)
             log(f"[kernels] K1 bilinear_sample {hw}x{hw}x{C} {mode:6s} B={B} P={P}: max_abs {mx:.3e} (bound 0: "
-                f"the same f32 arithmetic) {'ok' if good else 'FAIL'}; kernel {ms:.3f} ms, plain {pms:.3f} ms, "
-                f"F.grid_sample (f32 NCHW) {lms:.3f} ms, bound {bms:.4f} ms (bytes)")
+                f"the same f32 arithmetic) {'ok' if good else 'FAIL'}; kernel {ms:.4f} ms (device time under the "
+                f"profiler {dms:.4f} ms), plain {pms:.3f} ms, F.grid_sample (f32 NCHW) {lms:.3f} ms, "
+                f"bound {bms:.4f} ms (bytes)")
             del nchw
     summary["bilinear_sample"] = dict(acc, bound_by="bytes")
     ok &= phase_multilevel(dev, summary, gen)

@@ -4,12 +4,16 @@ evaluation image and the fast train step on one card.
     python -m coponerf_tpu_torch.bench_kernels [--steps 5]
 
 Prints one JSON line with:
-- ``train_k1``: ``bilinear_sample`` (K1) at the training shape, ms per call
-  for each small level (16^2, 32^2, 64^2 x 256, 12 rows x 192 rays x 64
-  samples) in both padding modes;
+- ``train_k1``: ``bilinear_sample`` (K1) at the training shape, ms per
+  call for each small level (16^2, 32^2, 64^2 x 256, 12 rows x 192 rays x
+  64 samples) in both padding modes, and the six calls' sum;
+  ``train_k1_device``: the same calls' kernel time alone, device ms under
+  ``torch.profiler`` (a diagnostic: the wrapper's host time is left out);
 - ``stage_a``: per sample set of inference stage A (2 view rows, 16 x
   32768 points, the four render levels), ``multilevel_sample`` (K8a, one
   launch) and the four one-level ``bilinear_sample`` calls, in turns;
+- ``k8b``: ``grid_sample_window`` (K8b) on the 256^2 x 64 level at stage
+  A's points, f32 output, ms per call in both padding modes;
 - ``train_k4``: ``onehot_transpose_matmul`` (K4) at the training shape,
   ms per call for each small level in both padding modes (bf16
   cotangents, corners from the ray-major training points), and the six
@@ -25,7 +29,9 @@ Prints one JSON line with:
 - ``render_cf16_4_ms`` and ``render_cf16_4_attn_embed_ms``: one 256^2
   request in the fast config (cf[16,4], two 32768-ray chunks, encode
   excluded), unfused and with ``fusion="attn_embed"``, in turns, ms per
-  image;
+  image (median of three turns; ``render_cf16_4_turns_ms`` has each turn,
+  and ``render_cf16_4_kernel_ms`` the device kernel time of one more
+  request of each under ``torch.profiler``);
 - ``render_single_stage_ms`` and ``render_core_single_stage_ms``: the same
   request in the single-stage fast config (S 64), unfused and with
   ``fusion="render_core"``, in turns, ms per image;
@@ -62,7 +68,7 @@ IMAGE = 256
 CHUNK = 32768
 TRAIN_ROWS = 12
 TRAIN_RAYS = 192
-SAMPLER_KERNELS = ("multilevel_sample_kernel", "bilinear_sample_kernel")
+SAMPLER_KERNEL = "multilevel_sample_kernel"  # every xy sampling launch (K1, K8a, K8b)
 
 
 def cuda_ms_in_turns(fns, reps: int = 5, inner: int = 10):
@@ -81,6 +87,29 @@ def cuda_ms_in_turns(fns, reps: int = 5, inner: int = 10):
             b.synchronize()
             times[i].append(a.elapsed_time(b) / inner)
     return [statistics.median(t) for t in times]
+
+
+def device_ms(fn, kernel: str = "", calls: int = 20, launches: int | None = None) -> float:
+    """Device ms per call of ``fn`` spent in kernels whose name holds
+    ``kernel`` (by default all), under ``torch.profiler`` over ``calls``
+    back-to-back calls after a warm-up call.  Where ``launches`` (such
+    kernels a call launches) is given, a profile that recorded another
+    count is taken again, up to three times, then the result is NaN: the
+    profiler can drop a session's records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
+        if launches is None or sum(e.count for e in events) == launches * calls:
+            return sum(e.self_device_time_total for e in events) / 1e3 / calls
+    return float("nan")
 
 
 def train_grid(gen, dev, shift: float) -> torch.Tensor:
@@ -104,16 +133,20 @@ def stage_a_grid(gen, dev, shift: float) -> torch.Tensor:
 
 
 def time_samplers(dev) -> dict:
-    from coponerf_tpu_torch.ops.bilinear_sample import bilinear_sample, multilevel_sample
+    from coponerf_tpu_torch.ops.bilinear_sample import bilinear_sample, grid_sample_window, multilevel_sample
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    out = {"train_k1": {}, "stage_a": {}}
+    out = {"train_k1": {}, "train_k1_device": {}, "stage_a": {}}
     for hw in (16, 32, 64):
         table = torch.randn(TRAIN_ROWS, hw, hw, 256, device=dev, generator=gen).bfloat16()
         for mode, shift in (("border", 0.0), ("zeros", 0.3)):
             grid = train_grid(gen, dev, shift)
-            (ms,) = cuda_ms_in_turns([lambda: bilinear_sample(table, grid, mode)])
-            out["train_k1"][f"{hw}x{hw}x256 {mode}"] = ms
+            key = f"{hw}x{hw}x256 {mode}"
+            (out["train_k1"][key],) = cuda_ms_in_turns([lambda: bilinear_sample(table, grid, mode)])
+            out["train_k1_device"][key] = device_ms(lambda: bilinear_sample(table, grid, mode), SAMPLER_KERNEL,
+                                                    launches=1)
+    for k in ("train_k1", "train_k1_device"):
+        out[k]["six_calls"] = sum(out[k].values())
     tables = [torch.randn(2, hw, hw, c, device=dev, generator=gen).bfloat16()
               for hw, c in ((16, 256), (32, 256), (64, 256), (IMAGE, 64))]
     for mode, shift in (("border", 0.0), ("zeros", 0.4)):
@@ -121,6 +154,10 @@ def time_samplers(dev) -> dict:
         ml, four = cuda_ms_in_turns([lambda: multilevel_sample(tables, grid, mode),
                                      lambda: [bilinear_sample(t, grid, mode) for t in tables]])
         out["stage_a"][mode] = {"multilevel_sample": ml, "four_bilinear_sample": four}
+    out["k8b"] = {}
+    for mode, shift in (("border", 0.0), ("zeros", 0.4)):
+        grid = stage_a_grid(gen, dev, shift)
+        (out["k8b"][mode],) = cuda_ms_in_turns([lambda: grid_sample_window(tables[-1], grid, mode)])
     return out
 
 
@@ -254,6 +291,7 @@ def time_render_and_eval(dev) -> dict:
         for r in range(3):               # in turns, the order reversed every other round
             for fusion in ((None, "attn_embed") if r % 2 == 0 else ("attn_embed", None)):
                 cf_times[fusion].append(host_ms(lambda: render(fusion), reps=1))
+        cf_kernel_ms = {str(f): device_ms(lambda: render(f), calls=1) for f in cf_times}
     single = CoPoNeRF(dataclasses.replace(cfg, coarse_samples=0, fine_samples=0), image_size=IMAGE).eval()
     single.load_state_dict(model.state_dict())
     single = single.to(dev)
@@ -287,6 +325,8 @@ def time_render_and_eval(dev) -> dict:
                                             verbose=False), reps=1)
     return {"render_cf16_4_ms": statistics.median(cf_times[None]),
             "render_cf16_4_attn_embed_ms": statistics.median(cf_times["attn_embed"]),
+            "render_cf16_4_turns_ms": {str(f): t for f, t in cf_times.items()},
+            "render_cf16_4_kernel_ms": cf_kernel_ms,
             "render_single_stage_ms": statistics.median(times[None]),
             "render_core_single_stage_ms": statistics.median(times["render_core"]),
             "eval_single_stage_ms": eval_ms, "eval_exact_ms": exact_ms}
@@ -319,7 +359,7 @@ def time_train_step(dev, n_steps: int) -> dict:
         trainer.train_step(state, batches[0], cfg)
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    sampler = [e for e in kernels if any(k in e.key for k in SAMPLER_KERNELS)]
+    sampler = [e for e in kernels if SAMPLER_KERNEL in e.key]
     return {"step_ms": times[2:], "median_step_ms": statistics.median(times[2:]),
             "device_kernel_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
             "sampler_kernel_ms": sum(e.self_device_time_total for e in sampler) / 1e3,

@@ -1,4 +1,5 @@
-// Register-level pieces of the epipolar attention chains (K6, K7).
+// Register-level pieces of the epipolar attention chains: K6's mma.sync
+// chains, and the widths, bf16 packing and lc loads that K7 shares.
 //
 // One warp owns a 16-token tile and runs a 128-wide embed chain on it with
 // mma.sync m16n8k16 (bf16 in, f32 accumulate).  The f32 accumulator of two
@@ -61,32 +62,6 @@ __device__ __forceinline__ void ldb(const bf16* wt, int ld, int j, int kk, int l
   b1 = *reinterpret_cast<const uint32_t*>(p + 8);
 }
 
-// The k axis of a product may be permuted so that a lane's A fragments are
-// one contiguous 64-byte run of its rows (16-byte loads from device memory):
-// logical k = 16 kk + 2t + e and 16 kk + 8 + 2t + e (e = 0, 1) of lane quad
-// member t are physical columns 32t + 4kk + e and 32t + 4kk + 2 + e.  The
-// weight is then staged with 4 bf16 of padding after its 64th column, which
-// keeps the 8-byte B-fragment loads of a half-warp in 32 distinct banks.
-__device__ __forceinline__ int perm_col(int t, int kk) { return 32 * t + (t >= 2 ? 4 : 0) + 4 * kk; }
-
-__device__ __forceinline__ void stage_perm(bf16* dst, const bf16* __restrict__ src) {
-  for (int u = threadIdx.x; u < H * (H / 4); u += blockDim.x) {
-    const int r = u / (H / 4), c = (u - r * (H / 4)) * 4;
-    *reinterpret_cast<uint2*>(dst + r * LDH + c + (c >= 64 ? 4 : 0)) =
-        *reinterpret_cast<const uint2*>(src + r * H + c);
-  }
-}
-
-// copy a contiguous transposed weight (rows x K bf16) into shared memory at
-// row stride K + 8, 16 bytes at a time, by the whole block
-__device__ __forceinline__ void stage(bf16* dst, const bf16* __restrict__ src, int rows, int K) {
-  const int vec = K / 8;
-  for (int u = threadIdx.x; u < rows * vec; u += blockDim.x) {
-    const int r = u / vec, c = (u - r * vec) * 8;
-    *reinterpret_cast<uint4*>(dst + r * (K + 8) + c) = *reinterpret_cast<const uint4*>(src + r * K + c);
-  }
-}
-
 // A fragment set of a 128-wide hidden layer from an f32 accumulator, in
 // place of the accumulator's 8-column tiles: hA[j / 2][(j % 2) * 2 + {0, 1}]
 __device__ __forceinline__ void put(uint32_t (&hA)[NK][4], int j, float x0, float x1, float x2,
@@ -123,9 +98,8 @@ __device__ __forceinline__ void hidden16(const uint32_t (&lcA)[4], const bf16* w
 // Per-row logit partials of sum_c (P @ WP + bP)[c] * (Q @ WQ + bQ)[c] over
 // the output tiles j0 .. j0 + kTiles - 1, for the tile's rows g (s0) and
 // g + 8 (s1), reduced over the lane quad: every lane of a quad returns the
-// rows' sums.  ld is the row stride of both transposed weights; with kPermP
-// P's k axis is permuted and WP staged by stage_perm.
-template <int kTiles, bool kPermP = false>
+// rows' sums.  ld is the row stride of both transposed weights.
+template <int kTiles>
 __device__ __forceinline__ void dot_rows(const uint32_t (&pA)[NK][4], const bf16* wp, const float* bp,
                                          const uint32_t (&qA)[NK][4], const bf16* wq, const float* bq,
                                          int ld, int j0, int lane, float& s0, float& s1) {
@@ -139,13 +113,7 @@ __device__ __forceinline__ void dot_rows(const uint32_t (&pA)[NK][4], const bf16
 #pragma unroll
     for (int kk = 0; kk < NK; ++kk) {
       uint32_t b0, b1;
-      if (kPermP) {
-        const uint2 w = *reinterpret_cast<const uint2*>(wp + (j * 8 + (lane >> 2)) * ld + perm_col(lane & 3, kk));
-        b0 = w.x;
-        b1 = w.y;
-      } else {
-        ldb(wp, ld, j, kk, lane, b0, b1);
-      }
+      ldb(wp, ld, j, kk, lane, b0, b1);
       mma(p, pA[kk], b0, b1);
       ldb(wq, ld, j, kk, lane, b0, b1);
       mma(q, qA[kk], b0, b1);

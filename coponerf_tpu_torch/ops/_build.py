@@ -8,7 +8,7 @@ hash of the sources and flags, so an edited source is never served by a
 stale build.  Nothing here runs at import time, and nothing falls back: a
 missing ``nvcc`` or a failed compile raises.
 
-K2's bf16 kernel and K6 read through TMA descriptors.
+K2's bf16 kernel, K6 and K7a read through TMA descriptors.
 ``cuTensorMapEncodeTiled`` is a driver-API function: ``csrc/hopper.cuh``
 fetches it once through the runtime's ``cudaGetDriverEntryPoint``, so
 nothing links ``-lcuda``.
@@ -59,7 +59,7 @@ SIGNATURES = {
     "k5_soft_argmax_stats": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, D, P],
     # c, rowf, colf, dr, dcol, xs, ys, xq, yq, out, B, Q, S, beta, stream
     "k5_soft_argmax_bwd": [P, P, P, P, P, P, P, P, P, P, I, I, I, D, P],
-    # ka, kbs, lc, fkb, wk2t, bk2, wqt, bq, wq2t, bq2, out, tokens, stream
+    # ka, kbs, lc, fkb, wk2, bk2, wq, bq, wq2, bq2 (weights (in, out) f32), out, tokens, stream
     "k7_round1_logits": [P] * 11 + [L, P],
     # ze, lc, wq, bq, wq2, bq2, wra, wrb, br, wr2, br2 (weights (in, out) f32), out, B, V, S, N, stream
     "k7_round2_logits": [P] * 12 + [I, I, I, I, P],

@@ -60,11 +60,6 @@ def round2_logits_plain(ze, lc, wq, bq, wq2, bq2, wra, wrb, br, wr2, br2, S: int
     return (torch.sum(qre * ce, dim=-1) * INV_SCALE).reshape(R, T)
 
 
-def _wt(w: torch.Tensor) -> torch.Tensor:
-    """(in, out) weight -> the kernel's transposed (out, in) bf16 layout."""
-    return w.t().to(torch.bfloat16).contiguous()
-
-
 def _f32(b: torch.Tensor) -> torch.Tensor:
     return b.float().contiguous()
 
@@ -99,11 +94,15 @@ def round1_logits(ka, kbs, lc, fk_bias, wk2, bk2, wq, bq, wq2, bq2) -> torch.Ten
         return round1_logits_plain(*args)
     if ka.dtype != torch.bfloat16 or kbs.dtype != torch.bfloat16:
         raise TypeError(f"ka and kbs must be bf16, got {ka.dtype} and {kbs.dtype}")
-    if not (ka.is_contiguous() and kbs.is_contiguous()) or ka.data_ptr() % 16 or kbs.data_ptr() % 16:
-        raise ValueError("ka and kbs must be contiguous and 16-byte aligned")
-    # the converted operands stay referenced until the launch is enqueued
-    ops = (ka, kbs, lc.to(torch.bfloat16).contiguous(), _f32(fk_bias), _wt(wk2), _f32(bk2), _wt(wq), _f32(bq),
-           _wt(wq2), _f32(bq2))
+    if R * T >= 2 ** 31:
+        raise ValueError(f"the kernel indexes tokens in 32 bits, got {R * T}")
+    # the kernel reads ka, kbs and lc by TMA and bulk copies, and rounds the
+    # (in, out) f32 weights to bf16 as it stages them
+    lc = lc.to(torch.bfloat16).contiguous()
+    for name, t in (("ka", ka), ("kbs", kbs), ("lc", lc)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    ops = (ka, kbs, lc, *(_f32(t) for t in (fk_bias, wk2, bk2, wq, bq, wq2, bq2)))
     out = torch.empty((R, T), dtype=torch.float32, device=device)
     code = _build.lib().k7_round1_logits(*(t.data_ptr() for t in ops), out.data_ptr(), R * T,
                                          _build.stream_of(ka))

@@ -74,8 +74,8 @@ def _check_xy_args(tables: Sequence[torch.Tensor], grid: torch.Tensor, padding_m
             raise ValueError(f"channel rows must be a multiple of 16 bytes (8 bf16), got C={t.shape[-1]}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("tables must be contiguous and 16-byte aligned")
-    if not grid.is_contiguous():
-        raise ValueError("grid must be contiguous")
+    if not grid.is_contiguous() or grid.data_ptr() % 8:
+        raise ValueError("grid must be contiguous and 8-byte aligned")
     return True
 
 

@@ -32,7 +32,7 @@ from __future__ import annotations
 import torch
 
 from coponerf_tpu_torch.ops import _build
-from coponerf_tpu_torch.ops.attn_embed import INV_SCALE, _bf, _check_weights, _device, _embed, _f32, _wt
+from coponerf_tpu_torch.ops.attn_embed import INV_SCALE, _bf, _check_weights, _device, _embed, _f32
 
 SPLITS = (256, 256, 256, 64)   # three UFC levels and the conv_map channels
 H = 128
@@ -47,6 +47,11 @@ WEIGHT_SHAPES = (("w1", (K + 3, K)), ("w1b", (K,)), ("fka", (K, H)), ("fkb", (K,
                  ("wk2", (H, H)), ("bk2", (H,)), ("wq", (L, H)), ("bq", (H,)), ("wq2", (H, H)), ("bq2", (H,)),
                  ("wra", (H, H)), ("wrb", (L, H)), ("brr", (H,)), ("wr2", (H, H)), ("br2", (H,)),
                  ("wenc", (NZ, H)), ("benc", (H,)), ("flva", (K, NZ)), ("flvb", (K, NZ)), ("flv_bias", (NZ,)))
+
+
+def _wt(w: torch.Tensor) -> torch.Tensor:
+    """(in, out) weight -> the kernel's transposed (out, in) bf16 layout."""
+    return w.t().to(torch.bfloat16).contiguous()
 
 
 def render_core_plain(samples_p, pt_p, samples_s, pt_s, lc, *weights, S: int, V: int, n_rays: int):

@@ -66,7 +66,7 @@ def main(argv=None) -> int:
         raise SystemExit("--checkpoint_path is required for evaluation")
     if opt.checkpoint_path.endswith(".pth"):
         raise SystemExit("importing the reference's .pth weights is not ported to coponerf_tpu_torch yet "
-                         "(ROADMAP, Queue 2); pass a checkpoint written by the port (.pt)")
+                         "(ROADMAP, Queue 1); pass a checkpoint written by the port (.pt)")
     import torch
 
     if opt.device == "cuda" and not torch.cuda.is_available():

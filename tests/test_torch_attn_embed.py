@@ -95,6 +95,31 @@ def test_cpu_wrappers_count_no_launch():
     assert (ae.round1_logits.launches, ae.round2_logits.launches) == before
 
 
+@pytest.mark.parametrize("case", ["kbs_shape", "lc_width", "rows", "wk2_shape", "wq_shape", "bias_shape"])
+def test_round1_logits_rejects_bad_arguments(case):
+    """K7a's shape checks, which run before the wrapper picks the plain
+    version or the kernel."""
+    rng = np.random.default_rng(1)
+    w = {k: torch.from_numpy(v) for k, v in _weights(rng).items()}
+    ka, kbs, lc = torch.randn(2, 40, H).bfloat16(), torch.randn(2, 40, H).bfloat16(), torch.randn(2, 40, L)
+    if case == "kbs_shape":
+        kbs = kbs[:, :39]
+    elif case == "lc_width":
+        lc = torch.randn(2, 40, L + 1)
+    elif case == "rows":
+        lc = lc[:1]
+    elif case == "wk2_shape":
+        w["wk2"] = w["wk2"][:, :64]
+    elif case == "wq_shape":
+        w["wq"] = w["wq"].t()
+    else:
+        w["bq2"] = w["bq2"][:-1]
+    before = ae.round1_logits.launches
+    with pytest.raises(ValueError):
+        ae.round1_logits(ka, kbs, lc, *(w[k] for k in ("fk_bias", "wk2", "bk2", "wq", "bq", "wq2", "bq2")))
+    assert ae.round1_logits.launches == before
+
+
 # ------------------------------------------- kernels vs plain, on the card --
 
 @pytest.fixture
@@ -110,9 +135,12 @@ def _cuda_weights(gen, dev, ze_rows: bool):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [16 * 4096, 1000, 7])
+@pytest.mark.parametrize("T", [16 * 32768, 4 * 32768, 16 * 4096, 1000, 33, 7])
 def test_round1_kernel_matches_plain(cuda, T):
-    """Same bf16 operands, f32 sums in another order (module docstring)."""
+    """Same bf16 operands, f32 sums in another order (module docstring).
+    Two view rows of T tokens: cf[16,4]'s stage A (16 x 32768) and stage B
+    (4 x 32768), and token counts the kernel's 64-token tiles do not divide
+    (2000, 66) or that fill less than one tile (14)."""
     g = torch.Generator().manual_seed(T)
     ka = torch.randn(2, T, H, generator=g).bfloat16().to(cuda)
     kbs = torch.randn(2, T, H, generator=g).bfloat16().to(cuda)

@@ -186,3 +186,33 @@ def test_multilevel_kernel_odd_widths(cuda, mode):
         got = multilevel_sample(tables, pts, mode, out_dtype=out_dtype)
         for o, r in zip(got, multilevel_sample_plain(tables, pts, mode, out_dtype=out_dtype)):
             torch.testing.assert_close(o, r, atol=0, rtol=0)
+
+
+def _sample_major_points(g, n_rays, S, shift, dev):
+    """(2, S * n_rays, 2) points as the render lays them: token s*N + n on
+    ray n's segment, rays in raster order of a 64-wide image, so neighbouring
+    tokens sample neighbouring pixels at one depth (up to 16 of them in one
+    cell of the 16^2 level); ``shift`` moves part of each segment off the
+    image."""
+    n = torch.arange(n_rays, device=dev, dtype=torch.float32)
+    u, v = (n % 64) / 63 * 2 - 1, (n // 64) / 63 * 2 - 1
+    start = torch.stack([(u + 1) / 2 - 0.95 - shift, v * 0.9], -1)
+    direction = torch.randn(2, 1, 2, device=dev, generator=g) * 0.2 + torch.tensor([0.9, 0.1], device=dev)
+    t = torch.linspace(0, 1, S, device=dev)
+    return (start[None, None] + t[None, :, None, None] * direction[:, :, None, :]).reshape(2, -1, 2).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["border", "zeros"])
+def test_multilevel_kernel_sample_major_render_points(cuda, mode):
+    """K8a on the render's four levels at sample-major points (4096 rays x
+    16 samples), and K8b (f32 out) on the 256^2 level at the same points,
+    each bit for bit its plain version."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    tables = [torch.randn(2, hw, hw, C, device=cuda, generator=g).bfloat16() for hw, C in RENDER_LEVELS]
+    pts = _sample_major_points(g, 4096, 16, 0.0 if mode == "border" else 0.4, cuda)
+    for o, r in zip(multilevel_sample(tables, pts, mode), multilevel_sample_plain(tables, pts, mode)):
+        torch.testing.assert_close(o, r, atol=0, rtol=0)
+    got = grid_sample_window(tables[-1], pts, mode)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, grid_sample_window_plain(tables[-1], pts, mode), atol=0, rtol=0)

@@ -263,6 +263,32 @@ def test_weighted_sum_plain_matches_jax(vsum):
     _close(got, ref, atol=1e-2, rtol=1e-2)
 
 
+@pytest.mark.parametrize("case", ["table_dtype", "grid_dtype", "padding", "batch", "grid_width", "table_rank"])
+def test_bilinear_sample_rejects_bad_arguments(case):
+    """K1's argument checks, which run before the wrapper picks the plain
+    version or the kernel: dtypes (TypeError), padding and shapes
+    (ValueError)."""
+    img = torch.zeros(2, 8, 8, 16, dtype=torch.bfloat16)
+    pts = torch.zeros(2, 10, 2)
+    mode, err = "zeros", ValueError
+    if case == "table_dtype":
+        img, err = img.float(), TypeError
+    elif case == "grid_dtype":
+        pts, err = pts.double(), TypeError
+    elif case == "padding":
+        mode = "reflection"
+    elif case == "batch":
+        pts = pts[:1]
+    elif case == "grid_width":
+        pts = torch.zeros(2, 10, 3)
+    else:
+        img = img[0]
+    before = bilinear_sample.launches
+    with pytest.raises(err):
+        bilinear_sample(img, pts, mode)
+    assert bilinear_sample.launches == before
+
+
 # ------------------------------------------- kernels vs plain, on the card --
 
 @pytest.fixture
@@ -312,3 +338,61 @@ def test_weighted_sum_kernel_matches_plain(cuda):
     for vsum in (None, 2):
         torch.testing.assert_close(weighted_sum_smaj(pre, w, 16, vsum=vsum),
                                    weighted_sum_plain(pre, w, 16, vsum=vsum), atol=1e-4, rtol=1e-5)
+
+
+def _ray_major_points(g, B, rays, S, shift, dev):
+    """(B, rays * S, 2) points as training lays them: token n*S + s, each
+    ray a segment across the image (``shift`` moves its start off it)."""
+    start = torch.rand(B, rays, 1, 2, device=dev, generator=g) * 0.4 - 1.0 - shift
+    end = torch.rand(B, rays, 1, 2, device=dev, generator=g) * 0.4 + 0.6
+    t = torch.linspace(0, 1, S, device=dev)[None, None, :, None]
+    return (start + (end - start) * t).reshape(B, rays * S, 2).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["border", "zeros"])
+def test_bilinear_sample_kernel_training_levels(cuda, mode):
+    """K1 as training calls it: the three small levels (C 256) at ray-major
+    points (64 samples a ray, consecutive samples in the same or the next
+    cell), bit for bit its plain version."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    pts = _ray_major_points(g, 3, 192, 64, 0.0 if mode == "border" else 0.3, cuda)
+    for hw in (16, 32, 64):
+        img = torch.randn(3, hw, hw, 256, device=cuda, generator=g).bfloat16()
+        before = bilinear_sample.launches
+        got = bilinear_sample(img, pts, mode)
+        assert bilinear_sample.launches == before + 1
+        torch.testing.assert_close(got, bilinear_sample_plain(img, pts, mode), atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 63, 65, 515])
+@pytest.mark.parametrize("C", [24, 256])
+def test_bilinear_sample_kernel_ragged_tiles(cuda, P, C):
+    """Point counts that end in a partial tile of the kernel (64 points a
+    block) or fill less than one, at a C whose C / 8 is a power of two and
+    one where it is not, both paddings; bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(P + C)
+    img = torch.randn(2, 11, 13, C, device=cuda, generator=g).bfloat16()
+    pts = torch.rand(2, P, 2, device=cuda, generator=g) * 2.4 - 1.2
+    for mode in ("border", "zeros"):
+        torch.testing.assert_close(bilinear_sample(img, pts, mode), bilinear_sample_plain(img, pts, mode),
+                                   atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_bilinear_sample_kernel_scrubs_nonfinite(cuda):
+    """Zeros padding: runs of NaN, +-Inf, huge and far-off-image points among
+    in-image ones give the plain version's output bit for bit: zeros where
+    no corner is in the image."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    img = torch.randn(2, 16, 16, 256, device=cuda, generator=g).bfloat16()
+    pts = torch.rand(2, 64, 2, device=cuda, generator=g) * 2.0 - 1.0
+    bad = torch.tensor([[float("nan"), 0.0], [0.0, float("inf")], [float("-inf"), float("nan")], [1e30, -1e30],
+                        [3.0, 0.5], [-1.2, -1.1], [0.1, 1.07]], device=cuda)
+    pts[0, 3:10] = bad
+    pts[1, 16:23] = bad.flip(0)
+    pts[1, 40::3] = bad[0]
+    got = bilinear_sample(img, pts, "zeros")
+    torch.testing.assert_close(got, bilinear_sample_plain(img, pts, "zeros"), atol=0, rtol=0)
+    assert (got[0, 3:7] == 0).all()
