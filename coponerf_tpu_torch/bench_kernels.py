@@ -39,6 +39,14 @@ Prints one JSON line with:
   through ``eval.harness.evaluate`` in the test entry's fast config
   (single stage, S 64, 32768-ray chunks) and in its default exact config
   (f32, 4096-ray chunks), encode plus render ms per image;
+- ``k5``: ``soft_argmax_stats`` (K5's forward) on a cosine-like (B, 4096,
+  4096) f32 volume at B 6 (the fused train step) and B 1 (the fused
+  encode), by CUDA events and by device time under ``torch.profiler``
+  summed over all of a call's launches (``device_ms``, with the launches
+  a call makes and the device ms of each kernel name in ``by_kernel``);
+  ``soft_argmax_bwd`` (K5's backward) at B 6 the same way; and
+  ``encode_fused_ms``, one 256^2 pair's ``encode()`` in the fast config
+  with ``fused_argmax=True`` (host clock, median of three);
 - ``train_step``: the fast-config train step at batch 6 x 256^2 pairs
   (pose + cycle + SSIM), the host-clock ms of each timed step, and one
   step's device kernel time under ``torch.profiler``, in all and in the
@@ -50,8 +58,9 @@ such windows; the render and the evaluations are host-clock times up to
 (the exact evaluation: one).  Run it in two checkouts of the repo in turns
 on one card (A, B, B, A) to compare them: it uses only entry points both
 have (the samplers, ``onehot_transpose_matmul``, ``round1_logits``,
-``round2_logits``, ``split_dense_relu``, ``render_core``, ``encode``,
-``render``, ``evaluate`` and ``train_step``).
+``round2_logits``, ``split_dense_relu``, ``render_core``,
+``soft_argmax_stats``, ``soft_argmax_bwd``, ``encode``, ``render``,
+``evaluate`` and ``train_step``).  ``--only`` runs some sections alone.
 """
 
 from __future__ import annotations
@@ -69,6 +78,8 @@ CHUNK = 32768
 TRAIN_ROWS = 12
 TRAIN_RAYS = 192
 SAMPLER_KERNEL = "multilevel_sample_kernel"  # every xy sampling launch (K1, K8a, K8b)
+K5_KERNEL = "soft_argmax"                    # every K5 launch, forward and backward
+SECTIONS = ("samplers", "k4", "attn_embed", "split_dense", "render_core", "k5", "render_eval", "train_step")
 
 
 def cuda_ms_in_turns(fns, reps: int = 5, inner: int = 10):
@@ -89,13 +100,15 @@ def cuda_ms_in_turns(fns, reps: int = 5, inner: int = 10):
     return [statistics.median(t) for t in times]
 
 
-def device_ms(fn, kernel: str = "", calls: int = 20, launches: int | None = None) -> float:
-    """Device ms per call of ``fn`` spent in kernels whose name holds
-    ``kernel`` (by default all), under ``torch.profiler`` over ``calls``
-    back-to-back calls after a warm-up call.  Where ``launches`` (such
-    kernels a call launches) is given, a profile that recorded another
-    count is taken again, up to three times, then the result is NaN: the
-    profiler can drop a session's records."""
+def kernel_profile(fn, kernel: str = "", calls: int = 20, launches: int | None = None) -> dict:
+    """{kernel name: (device ms, launches)} per call of ``fn`` for kernels
+    whose name holds ``kernel`` (by default all), under ``torch.profiler``
+    over ``calls`` back-to-back calls after a warm-up call.  The profiler
+    can drop a record or two of a session, so a kernel's launches a call
+    are its count over the calls, rounded, and its device ms a call the
+    mean time of its launches times those.  Where ``launches`` (such
+    kernels a call launches) is given, a profile that shows another number
+    is taken again, up to three times, then the result is empty."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -106,10 +119,20 @@ def device_ms(fn, kernel: str = "", calls: int = 20, launches: int | None = None
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
-        if launches is None or sum(e.count for e in events) == launches * calls:
-            return sum(e.self_device_time_total for e in events) / 1e3 / calls
-    return float("nan")
+                  if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key and e.count]
+        found = {e.key: (e.self_device_time_total / 1e3 / e.count * round(e.count / calls), round(e.count / calls))
+                 for e in events}
+        if launches is None or sum(n for _, n in found.values()) == launches:
+            return found
+    return {}
+
+
+def device_ms(fn, kernel: str = "", calls: int = 20, launches: int | None = None) -> float:
+    """Device ms per call of ``fn`` spent in kernels whose name holds
+    ``kernel``, as ``kernel_profile`` takes them; NaN where no profile
+    showed ``launches`` launches a call."""
+    prof = kernel_profile(fn, kernel, calls, launches)
+    return sum(ms for ms, _ in prof.values()) if prof else float("nan")
 
 
 def train_grid(gen, dev, shift: float) -> torch.Tensor:
@@ -249,6 +272,55 @@ def time_render_core(dev) -> dict:
     return {"render_core_chunk_ms": ms}
 
 
+def cosine_volume(B: int, n: int, gen, dev) -> torch.Tensor:
+    """(B, n, n) f32 cosine correlations of unit features where target token
+    s resembles source token s - 97: one sharp peak per row and column."""
+    import torch.nn.functional as F
+
+    src = F.normalize(torch.randn(B, n, 64, device=dev, generator=gen), dim=-1)
+    trg = F.normalize(src.roll(97, dims=1) + 0.7 * torch.randn(B, n, 64, device=dev, generator=gen), dim=-1)
+    return torch.bmm(src, trg.transpose(1, 2)).contiguous()
+
+
+def time_k5(dev) -> dict:
+    from coponerf_tpu_torch.ops.soft_argmax import soft_argmax_bwd, soft_argmax_stats
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n = (IMAGE // 4) ** 2
+    out = {}
+
+    def timed(fn) -> dict:
+        (ms,) = cuda_ms_in_turns([fn])
+        prof = kernel_profile(fn, K5_KERNEL)
+        return {"ms": ms, "device_ms": sum(v[0] for v in prof.values()) if prof else float("nan"),
+                "launches": sum(v[1] for v in prof.values()), "by_kernel": {k: v[0] for k, v in prof.items()}}
+
+    for B in (6, 1):
+        c = cosine_volume(B, n, gen, dev)
+        out[f"fwd_b{B}"] = timed(lambda: soft_argmax_stats(c))
+        if B == 6:
+            row, col = soft_argmax_stats(c)
+            rowf = torch.cat([row[:, :2], row[:, 2:] / row[:, 1:2]], dim=1)
+            colf = torch.cat([col[:, :2], col[:, 2:] / col[:, 1:2]], dim=1)
+            dr, dcol = (torch.randn(B, 2, n, device=dev, generator=gen) for _ in range(2))
+            out["bwd_b6"] = timed(lambda: soft_argmax_bwd(c, rowf, colf, dr, dcol))
+            del row, col, rowf, colf
+        del c
+        torch.cuda.empty_cache()
+
+    from coponerf_tpu_torch.config import ModelConfig
+    from coponerf_tpu_torch.data.synthetic import make_batch
+    from coponerf_tpu_torch.models import CoPoNeRF, batch_to_torch
+    from coponerf_tpu_torch.utils.init import init_weights
+
+    cfg = ModelConfig(fast_sampling=True, compute_dtype="bfloat16", fused_argmax=True)
+    model = init_weights(CoPoNeRF(cfg, image_size=IMAGE).eval(), seed=0).to(dev)
+    batch = batch_to_torch(make_batch(batch_size=1, image_size=IMAGE, n_rays=CHUNK, seed=0)[0], dev)
+    with torch.no_grad():
+        out["encode_fused_ms"] = host_ms(lambda: model.encode(batch))
+    return out
+
+
 def host_ms(fn, reps: int = 3) -> float:
     """Median host-clock ms of ``fn`` up to ``torch.cuda.synchronize()``, after one warm-up call."""
     fn()
@@ -369,6 +441,7 @@ def time_train_step(dev, n_steps: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=5, help="timed train steps (after two warm-up steps)")
+    ap.add_argument("--only", nargs="+", choices=SECTIONS, help="run these sections alone (default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("bench_kernels: no CUDA device")
@@ -379,18 +452,20 @@ def main() -> int:
     from coponerf_tpu_torch.ops import _build
 
     _build.lib()
-    result = {"device": torch.cuda.get_device_name(0), **time_samplers(dev)}
-    torch.cuda.empty_cache()
-    result["train_k4"] = time_k4(dev)
-    result["attn_embed"] = time_attn_embed(dev)
-    torch.cuda.empty_cache()
-    result["split_dense_relu"] = time_split_dense(dev)
-    torch.cuda.empty_cache()
-    result.update(time_render_core(dev))
-    torch.cuda.empty_cache()
-    result.update(time_render_and_eval(dev))
-    torch.cuda.empty_cache()
-    result["train_step"] = time_train_step(dev, args.steps)
+    only = set(args.only or SECTIONS)
+    result = {"device": torch.cuda.get_device_name(0)}
+    steps = (("samplers", lambda: result.update(time_samplers(dev))),
+             ("k4", lambda: result.update(train_k4=time_k4(dev))),
+             ("attn_embed", lambda: result.update(attn_embed=time_attn_embed(dev))),
+             ("split_dense", lambda: result.update(split_dense_relu=time_split_dense(dev))),
+             ("render_core", lambda: result.update(time_render_core(dev))),
+             ("k5", lambda: result.update(k5=time_k5(dev))),
+             ("render_eval", lambda: result.update(time_render_and_eval(dev))),
+             ("train_step", lambda: result.update(train_step=time_train_step(dev, args.steps))))
+    for name, step in steps:
+        if name in only:
+            step()
+            torch.cuda.empty_cache()
     print(json.dumps(result))
     return 0
 

@@ -55,8 +55,10 @@ SIGNATURES = {
     "k3_weighted_sum": [P, P, P, I, I, I, I, I, I, P],
     # g, idx, w, perm (i32 scratch, B x P), out (f32, zeroed), B, P, HW, C, g dtype, stream
     "k4_transpose_sample": [P, P, P, P, P, I, I, I, I, I, P],
-    # c, xs, ys, xq, yq, rowp, colp (scratch), row, col, B, Q, S, nSB, nQB, beta, stream
-    "k5_soft_argmax_stats": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, D, P],
+    # c, xs, ys, xq, yq, row, col, scratch (f32), its floats, counters (i32), their count, B, Q, S, beta, stream
+    "k5_soft_argmax_stats": [P, P, P, P, P, P, P, P, L, P, L, I, I, I, D, P],
+    # B, Q, S -> floats of scratch that k5_soft_argmax_stats needs on the current device
+    "k5_stats_scratch_floats": [I, I, I],
     # c, rowf, colf, dr, dcol, xs, ys, xq, yq, out, B, Q, S, beta, stream
     "k5_soft_argmax_bwd": [P, P, P, P, P, P, P, P, P, P, I, I, I, D, P],
     # ka, kbs, lc, fkb, wk2, bk2, wq, bq, wq2, bq2 (weights (in, out) f32), out, tokens, stream
@@ -71,7 +73,7 @@ SIGNATURES = {
     # -> the most tokens a ray (V*S) that k6_render_core takes
     "k6_max_tokens": [],
 }
-RESTYPES = {"k6_scratch_bytes": ctypes.c_longlong}
+RESTYPES = {"k6_scratch_bytes": ctypes.c_longlong, "k5_stats_scratch_floats": ctypes.c_longlong}
 
 _lock = threading.Lock()
 _lib = None

@@ -11,7 +11,9 @@ Wrappers around ``csrc/soft_argmax.cu``:
 
 - ``soft_argmax_stats`` replaces ``_stats`` (kernel ``_fwd_kernel``): per
   row the max, partition and unnormalised x/y expectations over S, per
-  column the same over Q, in one read of the volume;
+  column the same over Q, in one launch that reads the volume once and
+  merges its partial statistics across blocks itself (arrival counters
+  that each launch leaves at zero, one set per shape and stream);
 - ``soft_argmax_bwd`` replaces ``_bwd`` (kernel ``_bwd_kernel``): the
   softmax-expectation derivative of both directions in one elementwise pass.
 
@@ -29,8 +31,10 @@ import torch
 from coponerf_tpu_torch.ops import _build
 from coponerf_tpu_torch.ops.bilinear_sample import _kernel_device
 
-# csrc/soft_argmax.cu's forward tile (rows, columns): one partial per tile
-_TQ, _TS = 64, 256
+# csrc/soft_argmax.cu's forward chunk rows and strip columns: a launch counts
+# at most B * (Q / _ROWS + S / _STRIP) merge groups (rounded up), and two
+# more counters share out its work
+_ROWS, _STRIP = 32, 256
 
 
 def grid_shape(n: int):
@@ -99,6 +103,28 @@ def soft_argmax_stats_plain(c: torch.Tensor, beta: float):
     return row, col
 
 
+@functools.lru_cache(maxsize=32)
+def _stats_workspace(B: int, Q: int, S: int, device: torch.device, stream: int):
+    """What a forward launch of one shape on one stream needs besides c and
+    its outputs, kept for the next call (a call's host time matters at B 1):
+    the coordinates, the f32 scratch for the partial statistics and the
+    arrival counters, zeroed once: each launch leaves them at zero, and
+    only launches on this stream, which run one after another, use them.
+    Returns the tensors, the launcher, and their pointers and sizes in
+    its argument order."""
+    n = _build.lib().k5_stats_scratch_floats(B, Q, S)
+    if n < 0:
+        raise ValueError(f"soft_argmax_stats takes no volume of shape {(B, Q, S)}")
+    xs, ys, _, _ = coord_vectors(S, torch.float32, device)
+    xq, yq, _, _ = coord_vectors(Q, torch.float32, device)
+    scratch = torch.empty(n, dtype=torch.float32, device=device)
+    counters = torch.zeros(B * (-(-Q // _ROWS) + -(-S // _STRIP)) + 2, dtype=torch.int32, device=device)
+    tensors = (xs, ys, xq, yq, scratch, counters)
+    coords = (xs.data_ptr(), ys.data_ptr(), xq.data_ptr(), yq.data_ptr())
+    work = (scratch.data_ptr(), n, counters.data_ptr(), counters.numel())
+    return tensors, _build.lib().k5_soft_argmax_stats, coords, work
+
+
 def soft_argmax_stats(c: torch.Tensor, beta: float = 0.02):
     """c (B, Q, S) -> (row (B, 4, Q), col (B, 4, S)): per row over S and per
     column over Q, the max m, the partition z = sum exp((c - m) / beta) and
@@ -107,17 +133,11 @@ def soft_argmax_stats(c: torch.Tensor, beta: float = 0.02):
     if not _on_card(c):
         return soft_argmax_stats_plain(c, beta)
     B, Q, S = c.shape
-    xs, ys, xq, yq = _coords(c)
-    nsb, nqb = -(-S // _TS), -(-Q // _TQ)
-    rowp = torch.empty((B, nsb, 4, Q), dtype=torch.float32, device=c.device)
-    colp = torch.empty((B, nqb, 4, S), dtype=torch.float32, device=c.device)
+    stream = torch._C._cuda_getCurrentRawStream(c.device.index)  # _build.stream_of's, in a tenth of its time
+    _, launch, coords, work = _stats_workspace(B, Q, S, c.device, stream)
     row = torch.empty((B, 4, Q), dtype=torch.float32, device=c.device)
     col = torch.empty((B, 4, S), dtype=torch.float32, device=c.device)
-    code = _build.lib().k5_soft_argmax_stats(
-        c.data_ptr(), xs.data_ptr(), ys.data_ptr(), xq.data_ptr(), yq.data_ptr(),
-        rowp.data_ptr(), colp.data_ptr(), row.data_ptr(), col.data_ptr(),
-        B, Q, S, nsb, nqb, float(beta), _build.stream_of(c),
-    )
+    code = launch(c.data_ptr(), *coords, row.data_ptr(), col.data_ptr(), *work, B, Q, S, float(beta), stream)
     _build.check(code, "k5_soft_argmax_stats")
     soft_argmax_stats.launches += 1
     return row, col

@@ -99,6 +99,11 @@ def test_wrappers_check_their_inputs():
 # ------------------------------------------- kernels vs plain, on the card --
 
 SHAPES = [(2, 256, 256), (1, 1024, 4096), (1, 36, 49), (2, 100, 324)]
+# the forward's decomposition (32-row chunks, 256-column strips, bands of
+# chunks spread over the SMs): B above 6 with ragged chunks and strips, rows
+# that do not split evenly into bands, 64 strips of one short band, and a
+# volume narrower than one strip
+STATS_SHAPES = SHAPES + [(7, 2500, 900), (3, 4900, 1024), (1, 64, 16384), (2, 324, 100)]
 
 
 @pytest.fixture
@@ -112,19 +117,53 @@ def _card_volume(shape, cuda):
     return torch.tensor(cosine_volume(np.random.RandomState(7), *shape), device=cuda)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES)
-def test_stats_kernel_matches_plain(cuda, shape):
-    """The max is exact; the sums are taken in another order (tile
-    partials merged with a rescale), hence 1e-5 relative on the partition
-    and 1e-5 absolute on the expectations, which lie in [-1, 1]."""
-    c = _card_volume(shape, cuda)
-    got = sa.soft_argmax_stats(c)
-    ref = sa.soft_argmax_stats_plain(c, 0.02)
+def _assert_stats_match(got, ref):
     for g, r in zip(got, ref):
         torch.testing.assert_close(g[:, 0], r[:, 0], atol=0, rtol=0)
         torch.testing.assert_close(g[:, 1], r[:, 1], atol=0, rtol=1e-5)
         torch.testing.assert_close(g[:, 2:] / g[:, 1:2], r[:, 2:] / r[:, 1:2], atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", STATS_SHAPES)
+def test_stats_kernel_matches_plain(cuda, shape):
+    """The max is exact; the sums are taken in another order (strip and
+    band partials merged with a rescale), hence 1e-5 relative on the
+    partition and 1e-5 absolute on the expectations, which lie in [-1, 1]."""
+    c = _card_volume(shape, cuda)
+    _assert_stats_match(sa.soft_argmax_stats(c), sa.soft_argmax_stats_plain(c, 0.02))
+
+
+@pytest.mark.cuda
+def test_stats_kernel_on_unaligned_rows(cuda):
+    """A volume 4 bytes past a 16-byte boundary: the producer warp copies
+    the rows itself instead of bulk copies."""
+    c = _card_volume((2, 256, 256), cuda)
+    flat = torch.empty(c.numel() + 1, device=cuda)
+    flat[1:] = c.reshape(-1)
+    shifted = flat[1:].view(c.shape)
+    assert shifted.data_ptr() % 16
+    _assert_stats_match(sa.soft_argmax_stats(shifted), sa.soft_argmax_stats_plain(c, 0.02))
+
+
+@pytest.mark.cuda
+def test_stats_kernel_is_reproducible_and_resets_its_counters(cuda):
+    """The same call twice gives the same bits (every merge in index
+    order), and calls back to back at other shapes, which reuse the
+    launch's arrival counters, each match the plain version: every launch
+    leaves its counters at zero."""
+    c = _card_volume((6, 1024, 1024), cuda)
+    first = sa.soft_argmax_stats(c)
+    second = sa.soft_argmax_stats(c)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    other = _card_volume((2, 2500, 900), cuda)
+    got = [sa.soft_argmax_stats(x) for x in (other, c, other)]
+    _assert_stats_match(got[0], sa.soft_argmax_stats_plain(other, 0.02))
+    _assert_stats_match(got[1], sa.soft_argmax_stats_plain(c, 0.02))
+    _assert_stats_match(got[2], sa.soft_argmax_stats_plain(other, 0.02))
+    for a, b in zip(got[1], first):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -8,7 +8,9 @@ Inputs are made with numpy from a seed and fed to both.  Tolerances, with
 their reasons:
   - K4 against the JAX kernel (Pallas interpreted): 1e-2 of the max, since
     the JAX kernel rounds the cotangent and the one-hot weights to bf16 in
-    its dot (``bilinear_sample.py:444-447``); the port keeps f32;
+    its dot (``bilinear_sample.py:444-447``); the port keeps f32; given
+    inputs rounded as that kernel rounds them, 1e-5 of the max (f32 sum
+    order), which shows the rounding is the whole difference;
   - K4 against JAX's exact ``grid_sample`` VJP, and every f32 gradient
     (split_dense_relu, convmap_sample_pair, ssim_warp_packed): f32 sum-order
     round-off, 1e-5 absolute or 1e-4 relative of the max;
@@ -99,6 +101,49 @@ def test_k4_plain_matches_jax_kernel(mode):
         assert got.shape == (B, H * W, C) and got.dtype == torch.float32
         assert tbs.onehot_transpose_matmul.launches == 0
         assert _rel_max(got, ref) < 1e-2
+
+
+def _bf16(x):
+    return torch.tensor(np.asarray(x, np.float32)).bfloat16().float()
+
+
+def _jax_onehot_weights(idx, w):
+    """The weights of JAX's K4 one-hot tile (``bilinear_sample.py:440-447``):
+    the corners of a point that fall on one cell summed in f32, corner
+    order, at the cell's first corner (the others get 0), then rounded to
+    bf16 for the dot."""
+    idx, w = np.asarray(idx), np.asarray(w, np.float32)
+    merged = np.zeros_like(w)
+    for c in range(4):
+        same = idx == idx[..., c:c + 1]
+        total = np.zeros(w.shape[:-1], np.float32)
+        for k in range(4):
+            total = total + np.where(same[..., k], w[..., k], np.float32(0))
+        merged[..., c] = np.where(same[..., :c].any(axis=-1), np.float32(0), total)
+    return _bf16(merged)
+
+
+@pytest.mark.parametrize("mode", ["border", "zeros"])
+def test_k4_plain_with_jax_rounding_matches_jax_kernel(mode):
+    """The 1e-2 of ``test_k4_plain_matches_jax_kernel`` is JAX's bf16
+    rounding alone: given the one-hot weights and the cotangent rounded as
+    JAX's kernel rounds them, the port's f32 plain K4 matches it to f32
+    sum-order round-off (1e-5 of the max), for both decompositions, while
+    the unrounded inputs miss by more."""
+    rng = np.random.RandomState(0)
+    B, H, W, C, P = 2, 12, 20, 16, 300
+    pts = _points(rng, B, P)
+    if mode == "border":
+        pts = np.nan_to_num(pts, nan=0.0, posinf=0.0, neginf=0.0)
+    g = rng.randn(B, P, C).astype(np.float32)
+    x, y = jbs._pixel_coords(jnp.asarray(pts), H, W, mode)
+    decompositions = (jbs.bilinear_corner_decomposition(jnp.asarray(pts), H, W, mode),
+                      jbs._corners_from_pixel_xy(x, y, W, mode != "border"))
+    for idx, w in decompositions:
+        ref = jbs.onehot_transpose_matmul(jnp.asarray(g), idx, w, H * W, block_hw=128, block_p=128)
+        got = tbs.onehot_transpose_matmul_plain(_bf16(g), _t(idx), _jax_onehot_weights(idx, w), H * W)
+        assert _rel_max(got, ref) <= 1e-5
+        assert _rel_max(tbs.onehot_transpose_matmul_plain(_t(g), _t(idx), _t(w), H * W), ref) > 1e-5
 
 
 @pytest.mark.parametrize("case", ["g_dtype", "g_rank", "idx_dtype", "w_dtype", "idx_shape", "w_rows"])
