@@ -49,7 +49,12 @@ result line:
      with fusion="render_core" (K6) in turns, each warm-up then timed, with
      launch counts, ms/image, rays/s and peak memory, and each fused
      render's rgb and at_wt against the unfused render of its config;
-     the four renders are then profiled once each; then the evaluation
+     the four renders are then profiled once each; then the camera path
+     (eval/trajectory.py): 8 frames of the request between its context
+     cameras from one encode through render_trajectory, cf[16, 4],
+     32768-ray chunks, ms/frame and frames/s, launch counts per frame (K8a
+     8, K2 8, K3 16) and one frame against a direct chunked render at its
+     pose, bit for bit; then the evaluation
      harness (eval/harness.py evaluate) in the entry's fast config (single
      stage, S 64) on two synthetic 256^2 pairs (seeds 0 and 1) with full
      query images, 32768-ray chunks, batch 1: ms per image, rays/s, PSNR,
@@ -58,15 +63,24 @@ result line:
      pair with a turned query camera whose pruned render skips a chunk and
      scatters back (rgb against the unpruned render to 1e-5, metrics to
      1e-6), and the harness's assembled rgb against a direct chunked render,
-     bit for bit; one pair's evaluation is profiled; then one pair through
+     bit for bit; one pair's evaluation is profiled and timed with the
+     test entry's MetricLogger (its ten panels, PNGs where TensorBoard does
+     not import) against none, in turns; then one pair through
      evaluate in the test entry's default exact config (f32, fast_sampling
      off, S 64, 4096-ray chunks): ms/image, metrics, and K2's f32 kernel
-     twice a chunk, no other kernel;
+     twice a chunk, no other kernel; between the two, LPIPS-VGG on random
+     weights on the card against the CPU (1e-4 relative, ms/image) and one
+     pair through evaluate with the LPIPS column; then the native scene
+     cache (runtime/scenecache.cpp built by g++ into the build directory):
+     frames written and read back, its fused crop + resize against the
+     numpy bilinear path (1e-5);
   5. one 1024-ray chunk rendered on the card and on the CPU (where the plain
      versions run) from the same SceneState and weights, unfused, with
      fusion="attn_embed" (cf[16, 4]) and with fusion="render_core" (single
      stage), rgb and at_wt compared at the fast-config bound;
-  6. the training path: the same widths, fast config (fast_sampling, bf16,
+  6. the training path (its synthetic batches' host generation timed
+     against the step, the cost --synthetic_pool saves the train entry):
+     the same widths, fast config (fast_sampling, bf16,
      remat_ufc, convmap_direct_grad, train_onehot_small), pose + cycle +
      SSIM losses, batches of 6 synthetic 256^2 pairs with 192 rays, unfused
      and with fused_argmax, two train states from the same seeded weights
@@ -76,7 +90,11 @@ result line:
      fused_argmax K5 forward 1 and backward 1) and the fused first step's
      losses and grad norm against the unfused first step's (same weights,
      same batch); prints step ms, pairs/s and each configuration's peak
-     memory, and profiles one step of each;
+     memory, and profiles one step of each; then in-training validation
+     (training/validation.py make_val_fn, its default 512-ray chunks) on
+     the unfused state over one full 256^2 pair: every val_* term finite,
+     ms, the panels captured by a recording logger, launch counts (K8a 2,
+     K2 2, K3 4 a chunk);
   7. one train step on the card and on the CPU from the same weights and
      batch (64^2, batch 1), unfused and fused, losses and grad norm
      compared at the fast config's bound.
@@ -88,6 +106,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -853,6 +872,7 @@ def phase_eval(model, dev, card: str, count, launches) -> None:
         warnings.simplefilter("ignore")
         profile_step(lambda: evaluate(model, one, batch_size=1, chunk=CHUNK, image_size=IMAGE, verbose=False),
                      card, "eval, one pair (loader, encode, render, host metrics)")
+    eval_with_summaries(model, one, card)
 
     encode, render_image = make_renderer(model, CHUNK)
     batch = batch_to_torch(ds[0][0], dev)
@@ -868,6 +888,50 @@ def phase_eval(model, dev, card: str, count, launches) -> None:
         f"{'bit for bit' if same else 'DIFFERENT'} (max abs {(assembled - direct).abs().max().item():.3e})")
     if not same:
         raise RuntimeError("the harness's assembled image differs from the direct render")
+
+
+def eval_with_summaries(model, one, card: str) -> None:
+    """``evaluate`` of one pair with the test entry's ``MetricLogger``
+    (TensorBoard where it imports, else ten PNG panels) against none, in
+    turns: what the summaries add to an image, on the host."""
+    import shutil
+    import tempfile
+    import warnings
+
+    from coponerf_tpu_torch.eval.harness import evaluate
+    from coponerf_tpu_torch.ops import _build
+    from coponerf_tpu_torch.training.trainer import MetricLogger
+
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    logdir = tempfile.mkdtemp(dir=_build.BUILD_DIR)
+    times = {"none": [], "logger": []}
+    try:
+        logger = MetricLogger(logdir)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                for i in range(4):
+                    for key in ("none", "logger") if i % 2 == 0 else ("logger", "none"):
+                        t0 = time.perf_counter()
+                        evaluate(model, one, batch_size=1, chunk=CHUNK, image_size=IMAGE, verbose=False,
+                                 logger=logger if key == "logger" else None)
+                        times[key].append(time.perf_counter() - t0)
+        finally:
+            logger.close()
+        pngs = sorted(os.listdir(os.path.join(logdir, "images"))) if logger._tb is None else []
+        scalars = [json.loads(line) for line in open(os.path.join(logdir, "metrics.jsonl"))]
+    finally:
+        shutil.rmtree(logdir)
+    kept = "TensorBoard" if logger._tb is not None else f"{len(pngs)} PNG panels"
+    med = {k: statistics.median(v[1:]) * 1e3 for k, v in times.items()}
+    log(f"[eval] evaluate of one pair with the entry's MetricLogger ({kept}) against none, in turns: "
+        f"{med['logger']:.1f} ms an image against {med['none']:.1f} (medians of 3 after one warm-up each: "
+        + "; ".join(f"{k} " + ", ".join(f"{t * 1e3:.1f}" for t in v) for k, v in times.items())
+        + f"), the summaries {med['logger'] - med['none']:.1f} ms an image [{card}]")
+    if logger._tb is None and len(pngs) != 10:
+        raise RuntimeError(f"the logger wrote {pngs}, expected ten panels")
+    if len(scalars) != 4 or not all(np.isfinite(v) for row in scalars for v in row.values()):
+        raise RuntimeError(f"bad summary scalars {scalars}")
 
 
 def phase_eval_exact(dev, card: str, count, launches) -> None:
@@ -948,6 +1012,189 @@ def sparse_pair(model, dev, count, launches) -> None:
         raise RuntimeError("the pruned render of the sparse pair disagrees with the unpruned one")
 
 
+def phase_camera_path(model, batch, card: str, count, launches) -> None:
+    """The serving path: 8 frames on the path between the request's two
+    context cameras from one encode, each a whole 256^2 image in 32768-ray
+    chunks in the fast config (cf[16, 4]), through the user's entry
+    ``render_trajectory`` (warm-up, then timed with its encode), then the
+    frame loop alone from one encode; launch counts per frame (K8a 8, K2 8,
+    K3 16) and one frame against a direct chunked render at its pose, bit
+    for bit."""
+    from coponerf_tpu_torch.eval.trajectory import interpolate_poses, render_poses, render_trajectory
+
+    n_frames, n_rays = 8, IMAGE * IMAGE
+    batch_np = {k: {kk: vv.cpu().numpy() for kk, vv in v.items()} for k, v in batch.items()}
+    render_trajectory(model, batch_np, n_frames=2, image_size=IMAGE, chunk=CHUNK)      # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames = count("camera_path", lambda: render_trajectory(model, batch_np, n_frames=n_frames, image_size=IMAGE,
+                                                            chunk=CHUNK))
+    path_s = time.perf_counter() - t0
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = model.encode(batch)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+    c2w = batch["context"]["cam2world"][0].cpu().numpy()
+    poses = interpolate_poses(c2w[0], c2w[1], n_frames)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop = render_poses(model, batch, state, poses, CHUNK)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    per_frame = dict.fromkeys(KERNELS, 0)
+    n_chunks = n_rays // CHUNK
+    per_frame.update(multilevel_sample=4 * n_chunks, split_dense_relu=4 * n_chunks, weighted_sum_smaj=8 * n_chunks)
+    expected = {k: v * n_frames for k, v in per_frame.items()}
+    log(f"[path] {n_frames} frames of {IMAGE}^2 through render_trajectory (one encode, cf[16, 4], chunks of {CHUNK}): "
+        f"{path_s * 1e3:.1f} ms, encode included; the frame loop alone {loop_s * 1e3:.1f} ms from one encode of "
+        f"{enc_s * 1e3:.1f} ms: {loop_s / n_frames * 1e3:.1f} ms/frame, {n_frames / loop_s:.2f} frames/s [{card}]")
+    log(f"[path] kernel launches: {launches['camera_path']} (expected {expected}: per frame {per_frame})")
+    if launches["camera_path"] != expected:
+        raise RuntimeError("a kernel of the camera path was not launched as expected")
+    if frames.shape != (n_frames, IMAGE, IMAGE, 3) or not np.isfinite(frames).all():
+        raise RuntimeError(f"bad camera-path frames: shape {frames.shape}")
+    k = 5
+    with torch.no_grad():
+        q = dict(batch["query"], cam2world=torch.as_tensor(poses[k], device=batch["query"]["uv"].device)[None, None])
+        posed = {"context": batch["context"], "query": q}
+        direct = torch.cat([model.render(slice_chunk(posed, lo, lo + CHUNK), state, val=True)["rgb"]
+                            for lo in range(0, n_rays, CHUNK)], dim=2)[0, 0]
+    same = torch.equal(loop[k], direct)
+    log(f"[path] frame {k} vs a direct chunked render at its pose from the same encode: "
+        f"{'bit for bit' if same else 'DIFFERENT'} (max abs {(loop[k] - direct).abs().max().item():.3e})")
+    if not same:
+        raise RuntimeError("a camera-path frame differs from the direct render at its pose")
+
+
+class RecordingLogger:
+    """A MetricLogger stand-in that keeps the scalars and the panels."""
+
+    def __init__(self):
+        self.scalars, self.images = {}, {}
+
+    def log(self, step, metrics):
+        self.scalars.update({k: float(v) for k, v in metrics.items()})
+
+    def log_image(self, step, tag, img):
+        self.images[tag] = np.asarray(img)
+
+
+def phase_validation(state, cfg, card: str, count, launches) -> None:
+    """In-training validation (``make_val_fn``, its default 512-ray chunks)
+    on the fast train state over one full 256^2 pair: every ``val_*`` term
+    finite, the panels captured, the launch counts (single stage: K8a 2,
+    K2 2, K3 4 a chunk); then one call under the profiler."""
+    from coponerf_tpu_torch.data.synthetic import make_batch
+    from coponerf_tpu_torch.training.validation import make_val_fn
+
+    pair = make_batch(batch_size=1, image_size=IMAGE, n_rays=IMAGE * IMAGE, seed=7, full_query_image=True)
+    val_fn = make_val_fn(cfg, [pair], image_size=IMAGE)
+    val_fn(state, 0, RecordingLogger())                     # warm-up
+    logger = RecordingLogger()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    count("validation", lambda: val_fn(state, 1, logger))
+    dt = time.perf_counter() - t0
+    n_chunks = IMAGE * IMAGE // 512
+    expected = dict.fromkeys(KERNELS, 0)
+    expected.update(multilevel_sample=2 * n_chunks, split_dense_relu=2 * n_chunks, weighted_sum_smaj=4 * n_chunks)
+    terms = {k: v for k, v in logger.scalars.items() if k.startswith("val_")}
+    panels = sorted(logger.images)
+    log(f"[validation] one {IMAGE}^2 pair in {n_chunks} chunks of 512: {dt * 1e3:.1f} ms (render, losses and "
+        f"panels) [{card}]; " + ", ".join(f"{k} {v:.5g}" for k, v in sorted(terms.items())))
+    log(f"[validation] panels: {panels}")
+    log(f"[validation] kernel launches: {launches['validation']} (expected {expected})")
+    want = {"val_img_loss", "val_ssim_loss", "val_cycle_loss", "val_pose_loss", "val_ent"}
+    if not want <= set(terms) or not all(np.isfinite(v) for v in terms.values()):
+        raise RuntimeError(f"bad validation terms: {terms}")
+    if not {"val_predictions", "val_depth_images", "val_warped_img", "val_epipolar_pred"} <= set(panels):
+        raise RuntimeError(f"validation panels missing: {panels}")
+    if launches["validation"] != expected:
+        raise RuntimeError("a kernel of the validation render was not launched as expected")
+    profile_step(lambda: val_fn(state, 2, RecordingLogger()), card, "validation, one 256^2 pair (render, losses, "
+                 "panels)")
+
+
+def phase_lpips(model, dev, card: str, count, launches) -> None:
+    """LPIPS-VGG on random weights (``make_random_weights``) on the card
+    against the CPU, 1e-4 relative, its ms/image; then one pair through
+    ``evaluate`` in the entry's fast config with the LPIPS column."""
+    import warnings
+
+    from coponerf_tpu_torch.eval.harness import evaluate
+    from coponerf_tpu_torch.eval.lpips import LPIPSVGG, make_random_weights
+    from coponerf_tpu_torch.ops import _build
+
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    path = make_random_weights(os.path.join(_build.BUILD_DIR, "lpips_random_seed0.npz"))
+    gen = torch.Generator().manual_seed(11)
+    a = torch.rand(IMAGE, IMAGE, 3, generator=gen) * 2 - 1
+    b = (a + 0.2 * torch.randn(IMAGE, IMAGE, 3, generator=gen)).clamp(-1, 1)
+    t0 = time.perf_counter()
+    cpu = LPIPSVGG.get(path, "cpu")(a, b)
+    cpu_s = time.perf_counter() - t0
+    net = LPIPSVGG.get(path, dev)
+    ad, bd = a.to(dev), b.to(dev)
+    net(ad, bd)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        got = net(ad, bd)
+    ms = (time.perf_counter() - t0) / 5 * 1e3
+    rel = abs(got - cpu) / abs(cpu)
+    log(f"[lpips] {IMAGE}^2 pair, random VGG weights: card {got:.7g}, CPU {cpu:.7g}, relative {rel:.2e} (bound 1e-4) "
+        f"{'ok' if rel <= 1e-4 else 'FAIL'}; {ms:.2f} ms/image on the card (host clock, the value read back), "
+        f"{cpu_s * 1e3:.0f} ms on the CPU [{card}]")
+    if not rel <= 1e-4:
+        raise RuntimeError("LPIPS on the card and on the CPU disagree")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        m = count("eval_lpips", lambda: evaluate(model, PairSet((0,)), batch_size=1, chunk=CHUNK, image_size=IMAGE,
+                                                 verbose=False, lpips_weights=path)).metrics["all"]
+    rps = m["rays_per_sec"][0]
+    log(f"[lpips] evaluate with the LPIPS column, pair 0: lpips {m['lpips'][0]:.6g}, psnr {m['psnr'][0]:.6g}, "
+        f"{IMAGE * IMAGE / rps * 1e3:.1f} ms/image encode + render [{card}]")
+    if not np.isfinite(m["lpips"][0]):
+        raise RuntimeError("evaluate gave no finite LPIPS")
+
+
+def phase_scene_cache(card: str) -> None:
+    """The native scene cache built with g++ on this machine: frames
+    written, read back bit for bit, and ``processed`` (crop and bilinear
+    resize in C++) against the readers' numpy bilinear resize, 1e-5."""
+    from coponerf_tpu_torch.data import fast_loader
+    from coponerf_tpu_torch.data.scene_dataset import bilinear_resize, square_crop
+
+    t0 = time.perf_counter()
+    fast_loader.get_lib()
+    build_s = time.perf_counter() - t0
+    rng = np.random.RandomState(3)
+    frames = rng.randint(0, 255, (4, 256, 455, 3), np.uint8)
+    path = os.path.join(fast_loader.BUILD_DIR, f"smoke_{os.getpid()}.cache")
+    try:
+        fast_loader.write_cache(path, np.arange(4, dtype=np.int64) * 1000, frames)
+        cache = fast_loader.SceneCache(path)
+        same = all(np.array_equal(cache.frame(i), frames[i]) for i in range(4))
+        worst = 0.0
+        t0 = time.perf_counter()
+        for i in range(4):
+            got = cache.processed(i, IMAGE)
+            want = bilinear_resize(square_crop(frames[i]).astype(np.float32), (IMAGE, IMAGE)) / 127.5 - 1
+            worst = max(worst, float(np.abs(got - want).max()))
+        cache.close()
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    good = same and worst <= 1e-5
+    log(f"[cache] libscenecache built or loaded in {build_s:.2f} s ({fast_loader.library_path()}); 4 frames of "
+        f"256 x 455 written and read back {'bit for bit' if same else 'DIFFERENT'}; processed({IMAGE}) vs the numpy "
+        f"bilinear path max abs {worst:.2e} (bound 1e-5) {'ok' if good else 'FAIL'}")
+    if not good:
+        raise RuntimeError("the native scene cache disagrees with the numpy path")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -981,6 +1228,12 @@ def main() -> int:
     card = lines[0].strip()
     log(card)
     log(f"[device] {name}, torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+    import importlib.util
+
+    # the optional host libraries whose absence the port's numpy/zlib paths cover
+    log("[device] host libraries: " + ", ".join(
+        f"{m} {'yes' if importlib.util.find_spec(m) is not None else 'no'}"
+        for m in ("cv2", "matplotlib", "PIL", "imageio", "tensorboard")))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1168,8 +1421,11 @@ def main() -> int:
                                  ("infer single stage fusion=render_core", smodel, "render_core", scfg.npoints)):
         profile_step(lambda: render_request(m, fusion, se), card, label)
     torch.cuda.empty_cache()
+    phase_camera_path(model, batch, card, count, launches)
     phase_eval(smodel, dev, card, count, launches)
+    phase_lpips(smodel, dev, card, count, launches)
     phase_eval_exact(dev, card, count, launches)
+    phase_scene_cache(card)
 
     # 5. the same chunk on the card and on the CPU (plain versions): unfused
     # and fused in cf[16, 4], and K6 in the single-stage config
@@ -1203,8 +1459,15 @@ def main() -> int:
                   loss=LossConfig(pose=True, cycle=True, ssim=True), train=TrainConfig())
     m = tcfg.model
     assert m.remat_ufc and m.convmap_direct_grad and m.train_onehot_small
-    batches = [batch_to_torch(make_batch(batch_size=TRAIN_BATCH, image_size=IMAGE, n_rays=TRAIN_RAYS,
-                                         seed=s)[0], dev) for s in (1, 2)]
+    # the host's generation of a synthetic batch, what the train entry's
+    # --dataset synthetic stream costs a step without --synthetic_pool
+    batches, gen_s = [], []
+    for s in (1, 2, 3):
+        t0 = time.perf_counter()
+        b = make_batch(batch_size=TRAIN_BATCH, image_size=IMAGE, n_rays=TRAIN_RAYS, seed=s)[0]
+        gen_s.append(time.perf_counter() - t0)
+        if s < 3:
+            batches.append(batch_to_torch(b, dev))
     runs = {}
     for path, fused in (("train", False), ("train_fused", True)):
         tc = dataclasses.replace(tcfg, model=dataclasses.replace(tcfg.model, fused_argmax=fused))
@@ -1264,6 +1527,10 @@ def main() -> int:
             raise RuntimeError("a parameter did not move")
         log(f"[{path}] kernel launches over {n_steps} steps: {launches[path]} (per step {r['per_step']}, "
             f"checked at every step)")
+    step_ms = statistics.median(runs["train"]["times"][n_warm:]) * 1e3
+    log(f"[train] synthetic batch generation on the host (data/synthetic.py make_batch, batch {TRAIN_BATCH}): "
+        + ", ".join(f"{t * 1e3:.1f}" for t in gen_s) + f" ms a batch against the step's {step_ms:.1f} ms: "
+        f"{min(gen_s) * 1e3 / step_ms:.2f} of a step at the least [{card}]")
     # both first steps start from the same weights on the same batch.  The
     # forward differs only by the soft-argmax's f32 sum order: losses 1e-4
     # relative.  In the backward that f32 difference in the volume's
@@ -1281,6 +1548,7 @@ def main() -> int:
         raise RuntimeError("the fused and unfused train steps disagree")
     for path, r in runs.items():
         profile_step(lambda: trainer.train_step(r["state"], batches[0], r["cfg"]), card, path)
+    phase_validation(runs["train"]["state"], runs["train"]["cfg"], card, count, launches)
     del runs, batches
     torch.cuda.empty_cache()
 

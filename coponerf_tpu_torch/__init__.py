@@ -3,9 +3,11 @@
 The port of the JAX package ``coponerf_tpu`` (which stays the reference):
 ``encode`` once per stereo pair and ``render`` per ray chunk, in inference
 and in training, with the same module names, layouts and token orders, plus
-the losses, an Adam trainer, checkpoints, the evaluation harness and the
-``python -m coponerf_tpu_torch.train`` and ``python -m
-coponerf_tpu_torch.test`` entry points.
+the losses, an Adam trainer with in-training validation, checkpoints (and
+the import of the reference's ``.pth`` weights), the evaluation harness
+with LPIPS and image summaries, camera-path rendering, and the ``python -m
+coponerf_tpu_torch.train``, ``python -m coponerf_tpu_torch.test`` and
+``python -m coponerf_tpu_torch.render_path`` entry points.
 
 Layout:
   geometry/  camera / Plucker / epipolar math (f32)
@@ -17,15 +19,21 @@ Layout:
              ``_build`` compiles ``csrc/``
   models/    ResNet-34 encoder, UFC aggregation, pose head, light-field
              decoder, the CoPoNeRF top module
-  training/  losses, the train step and loop, checkpoints
-  eval/      the chunked-render evaluation harness, metrics, overlap table
-  utils/     JAX-params converter, the seeded parameter fill, the CLI parser
+  training/  losses, the train step and loop, checkpoints, validation,
+             image summaries (numpy drawing)
+  eval/      the chunked-render evaluation harness, metrics, LPIPS-VGG,
+             overlap table, camera-path rendering
+  utils/     JAX-params converter, the reference .pth import, the seeded
+             parameter fill, the CLI parser, a zlib PNG writer
   csrc/      CUDA sources of the kernels
   config     ``ModelConfig``, ``LossConfig``, ``TrainConfig``, ``Config``
   data/      synthetic stereo scenes (``make_batch``), the RealEstate10K /
-             ACID scene readers and the prefetching loader
+             ACID scene readers, the camera-path dataset, the native
+             scene cache (ctypes over runtime/scenecache.cpp) and the
+             prefetching loader
   train      the training entry point
   test       the evaluation entry point
+  render_path  the camera-path entry point
 
 The port imports neither JAX nor the JAX package: its configuration,
 synthetic data, scene readers, loader and metrics are its own copies of the

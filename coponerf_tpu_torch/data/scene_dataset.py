@@ -12,18 +12,23 @@ the middle frame as query, plus a per-scene overlap scalar for metric
 binning (test.py:271-272).
 
 Items are dicts of numpy arrays; ``models.batch_to_torch`` moves a batch
-to a device.  ``cv2`` is optional (the resize falls back to numpy
-nearest-neighbour).  Not ported yet (ROADMAP): the native scene cache
-(``data/fast_loader.py``; a ``scene.cache`` file with ``use_cache`` raises)
-and the camera-path dataset of trajectory rendering.
+to a device.  ``cv2`` is optional: without it frames are resized by
+``bilinear_resize``, numpy's copy of ``cv2.INTER_LINEAR`` (half-pixel
+centres, edge clamped; within one uint8 step of cv2's fixed-point
+weights).  A scene directory holding a ``scene.cache`` file (the native
+cache, ``data/fast_loader.py``) is read through it when ``use_cache``.
+``CameraPathDataset`` gives the camera-path items of trajectory rendering
+(``eval/trajectory.py``); ``batch_iterator`` is a minimal in-thread
+batcher.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import random
+import warnings
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -48,13 +53,40 @@ def unnormalize_intrinsics(K: np.ndarray, h: int, w: int) -> np.ndarray:
     return K
 
 
+def _axis_taps(n_out: int, n_in: int):
+    """cv2.INTER_LINEAR's source taps along one axis: the centre of output
+    pixel i maps to (i + 0.5) * n_in / n_out - 0.5; below 0 it clamps to
+    pixel 0, at or past the last pixel to the last (weight 0 on the next)."""
+    src = (np.arange(n_out, dtype=np.float64) + 0.5) * (n_in / n_out) - 0.5
+    i0 = np.floor(src).astype(np.int64)
+    frac = src - i0
+    low, high = i0 < 0, i0 >= n_in - 1
+    frac[low | high] = 0.0
+    i0 = np.clip(i0, 0, n_in - 1)
+    return i0, np.minimum(i0 + 1, n_in - 1), frac.astype(np.float32)
+
+
+def bilinear_resize(img: np.ndarray, wh: Tuple[int, int]) -> np.ndarray:
+    """Bilinear resize of an (H, W[, C]) image to ``wh`` = (width, height)
+    with ``cv2.INTER_LINEAR``'s sampling: f32 weights, a uint8 image
+    rounded back to uint8 (half up), any other dtype kept."""
+    w_out, h_out = wh
+    y0, y1, fy = _axis_taps(h_out, img.shape[0])
+    x0, x1, fx = _axis_taps(w_out, img.shape[1])
+    a = img.astype(np.float32)
+    fy = fy.reshape(-1, *([1] * (img.ndim - 1)))
+    rows = a[y0] * (1.0 - fy) + a[y1] * fy
+    fx = fx.reshape(1, -1, *([1] * (img.ndim - 2)))
+    out = rows[:, x0] * (1.0 - fx) + rows[:, x1] * fx
+    if img.dtype == np.uint8:
+        return np.clip(np.floor(out + 0.5), 0, 255).astype(np.uint8)
+    return out.astype(img.dtype)
+
+
 def _resize(img: np.ndarray, wh: Tuple[int, int]) -> np.ndarray:
     if cv2 is not None:
         return cv2.resize(img, wh)
-    # fallback: nearest via numpy (tests without cv2)
-    ys = (np.linspace(0, img.shape[0] - 1, wh[1])).astype(int)
-    xs = (np.linspace(0, img.shape[1] - 1, wh[0])).astype(int)
-    return img[ys][:, xs]
+    return bilinear_resize(img, wh)
 
 
 @dataclasses.dataclass
@@ -96,7 +128,7 @@ class SceneDatasetConfig:
     force_resize: bool = False              # ACID resizes every frame to base_hw
     min_frames: int = 10
     seed: Optional[int] = None
-    use_cache: bool = True                  # a scene.cache file raises: the native cache is not ported
+    use_cache: bool = True                  # prefer native scene.cache files when present
 
 
 class SceneDataset:
@@ -116,6 +148,7 @@ class SceneDataset:
         g = np.stack(np.meshgrid(np.arange(dim), np.arange(dim)), -1)
         self.uv = g.reshape(-1, 2).astype(np.float32)
         self._rng = random.Random(cfg.seed)
+        self._cache_handles: Dict[str, object] = {}
 
     def __len__(self):
         return len(self.all_scenes)
@@ -140,6 +173,21 @@ class SceneDataset:
         return rgb, K.astype(np.float32), cam.c2w.astype(np.float32)
 
     def _get_processed(self, source, rgb_files, i, cam: Camera):
+        """Frame and intrinsics through the native cache (crop and resize
+        fused in C++) when ``source`` is one, else the numpy path."""
+        if hasattr(source, "processed"):
+            cfg = self.cfg
+            K = unnormalize_intrinsics(cam.intrinsics, self.H, self.W)
+            K[0, 2] /= self.xscale
+            K[1, 2] /= self.yscale
+            dim = min(self.H, self.W)
+            if cfg.augment:
+                K[0, 0] *= cfg.image_size / dim
+                K[1, 1] *= cfg.image_size / dim
+                rgb = source.processed(int(i), cfg.image_size)
+            else:
+                rgb = square_crop(source.frame(int(i))).astype(np.float32) / 127.5 - 1.0
+            return rgb, K.astype(np.float32), cam.c2w.astype(np.float32)
         return self._process_frame(source[rgb_files[i]], cam)
 
     def _load_scene(self, idx: int):
@@ -147,11 +195,23 @@ class SceneDataset:
         name = scene_path.name
         if name not in self.all_pose:
             return None
-        if self.cfg.use_cache and (scene_path / "scene.cache").exists():
-            raise NotImplementedError(
-                f"{scene_path / 'scene.cache'}: the native scene cache (data/fast_loader.py) is not ported to "
-                "coponerf_tpu_torch yet (ROADMAP); remove the file or build the dataset with use_cache=False"
-            )
+        cache_path = scene_path / "scene.cache"
+        if self.cfg.use_cache and cache_path.exists():
+            try:
+                from coponerf_tpu_torch.data.fast_loader import SceneCache
+
+                cache = self._cache_handles.get(str(cache_path))
+                if cache is None:
+                    cache = SceneCache(str(cache_path))
+                    if len(self._cache_handles) > 64:
+                        self._cache_handles.clear()
+                    self._cache_handles[str(cache_path)] = cache
+                if cache.n_frames <= self.cfg.min_frames:
+                    return None
+                return cache, None, cache.timestamps, self.all_pose[name]
+            except (OSError, RuntimeError) as e:
+                # an unreadable cache (or no C++ compiler) leaves the npz
+                warnings.warn(f"{cache_path}: {e}; reading {scene_path}'s npz instead", stacklevel=2)
         npz_files = sorted(scene_path.glob("*.npz"))
         if not npz_files:
             return None
@@ -314,3 +374,58 @@ def collate(items):
 
     n_out = len(items[0])
     return tuple(stack_tree([it[j] for it in items]) for j in range(n_out))
+
+
+class CameraPathDataset(SceneDataset):
+    """Per-scene camera-path items for trajectory rendering: the first and
+    last (or clamped-window) frames become the context pair and every
+    other frame's pose a query (reference analogue: get_camera_pose,
+    realestate10k_dataio.py:80-172, and test.py's render path)."""
+
+    def __init__(self, cfg: SceneDatasetConfig, max_frames: int = 128):
+        super().__init__(cfg)
+        self.max_frames = max_frames
+
+    def __getitem__(self, idx: int):
+        loaded = self._load_scene(idx)
+        if loaded is None:
+            raise IndexError(idx)
+        data, rgb_files, timestamps, pose = loaded
+        n = min(len(timestamps), self.max_frames)
+        c_rgb, c_K, c_c2w = [], [], []
+        for i in (0, n - 1):
+            cam = parse_pose(pose, timestamps[i])
+            rgb, K, c2w = self._get_processed(data, rgb_files, i, cam)
+            c_rgb.append(rgb)
+            c_K.append(K)
+            c_c2w.append(c2w)
+        q_c2w, q_K = [], []
+        for i in range(1, n):
+            cam = parse_pose(pose, timestamps[i])
+            K = unnormalize_intrinsics(cam.intrinsics, self.H, self.W)
+            K[0, 2] /= self.xscale
+            K[1, 2] /= self.yscale
+            q_c2w.append(cam.c2w.astype(np.float32))
+            q_K.append(K.astype(np.float32))
+        dim = self.cfg.image_size
+        g = np.stack(np.meshgrid(np.arange(dim), np.arange(dim)), -1).reshape(-1, 2)
+        return {
+            "context": {"rgb": np.stack(c_rgb), "cam2world": np.stack(c_c2w), "intrinsics": np.stack(c_K)},
+            "query_path": {"cam2world": np.stack(q_c2w), "intrinsics": np.stack(q_K), "uv": g.astype(np.float32)},
+        }
+
+
+def batch_iterator(dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
+                   drop_last: bool = True) -> Iterator:
+    """Collate ``dataset``'s items into stacked numpy batches in this
+    thread: an endless shuffled stream, or one pass in order when
+    ``shuffle`` is off."""
+    rng = np.random.RandomState(seed)
+    order = np.arange(len(dataset))
+    while True:
+        if shuffle:
+            rng.shuffle(order)
+        for start in range(0, len(order) - (batch_size - 1 if drop_last else 0), batch_size):
+            yield collate([dataset[int(i)] for i in order[start: start + batch_size]])
+        if not shuffle:
+            return

@@ -12,8 +12,9 @@ Deviations from the reference, by design (as in the JAX package):
     torch.chunk's 18 uneven chunks;
   - PSNR/SSIM recorded per batch element everywhere (the reference mixes a
     joint-over-batch PSNR into its 'all' bin, test.py:246).
-Not ported yet (ROADMAP): the image panels of ``training/summaries.py``,
-so ``evaluate`` takes no logger.
+With a ``logger`` (``training/trainer.py:MetricLogger``), ``evaluate``
+writes each batch's image panels and pose scalars
+(``training/summaries.py``), as the reference's test.py:270 does.
 """
 
 from __future__ import annotations
@@ -140,9 +141,13 @@ def evaluate(
     prune_invalid: bool = False,
     drop_last: bool = True,
     num_workers: int = 0,
+    logger=None,
 ) -> M.MetricAccumulator:
     """Evaluate ``model`` (in eval mode, on its device) over ``dataset``'s
-    items (batch, gt, overlap), as the JAX package's ``evaluate``.
+    items (batch, gt, overlap), as the JAX package's ``evaluate``.  LPIPS
+    (with ``lpips_weights``) runs on the model's device.  ``logger``: each
+    batch's panels and pose scalars under the prefix ``val_`` at step = the
+    batch index.
 
     drop_last=True matches the reference protocol (its DataLoader drops the
     n % batch_size tail scenes, test.py:130); drop_last=False evaluates
@@ -187,6 +192,9 @@ def evaluate(
             target = np.asarray(gt["rgb"]).reshape(bs, image_size, image_size, 3)
             rgb = (np.clip(rgb, -1, 1) + 1) * 0.5
             target = (target + 1) * 0.5
+            if lpips_weights is not None:
+                lp_pred, lp_target = (torch.as_tensor(x * 2 - 1, dtype=torch.float32, device=device)
+                                      for x in (rgb, target))
 
             rel_pose = state.rel_pose.float().cpu().numpy()
             ctx_c2w = np.asarray(batch_np["context"]["cam2world"])
@@ -204,10 +212,15 @@ def evaluate(
                     "angle_trans": float(trans_ang[e]),
                     "rays_per_sec": n_rays * bs / dt,
                 }
-                lp = M.lpips_vgg(rgb[e] * 2 - 1, target[e] * 2 - 1, lpips_weights)
-                if lp is not None:
-                    vals["lpips"] = lp
+                if lpips_weights is not None:
+                    vals["lpips"] = M.lpips_vgg(lp_pred[e], lp_target[e], lpips_weights)
                 acc.add(M.overlap_bin(float(np.ravel(overlaps)[e])), **vals)
+            if logger is not None:
+                from coponerf_tpu_torch.training.summaries import img_summaries
+
+                out = {"rgb": rgb * 2 - 1, "depth_ray": rendered["depth_ray"], "rel_pose": rel_pose,
+                       "gt_rel_pose": gt_rel, "at_wt": rendered["at_wt"], "flow": state.flows}
+                img_summaries(logger, batch_np, gt, out, bi, prefix="val_", img_shape=(image_size, image_size))
             if verbose:
                 print(f"{bi + 1}/{n_batches} done.")
                 print(acc.format())

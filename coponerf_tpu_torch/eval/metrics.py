@@ -11,9 +11,8 @@ translation angular error), :271-302 (overlap-binned running statistics).
 ``ssim`` is the JAX package's gaussian-weighted SSIM (win 11, sigma 1.5)
 written with scipy.ndimage, unchanged.
 
-LPIPS is not ported yet (ROADMAP P8): ``lpips_vgg`` returns None without
-weights and raises with them, so a run never passes off a missing LPIPS
-column as a computed one.
+``lpips_vgg`` computes LPIPS-VGG (``eval/lpips.py``) given a converted
+weight file and returns None without one.
 """
 
 from __future__ import annotations
@@ -69,14 +68,17 @@ def translation_error(t1: np.ndarray, t2: np.ndarray):
 
 
 def lpips_vgg(img1, img2, weights_path: Optional[str] = None) -> Optional[float]:
-    """None without weights; with weights it raises: the LPIPS network is
-    not ported yet (ROADMAP P8)."""
+    """LPIPS-VGG of two [-1, 1] images (``eval/lpips.py``) on the device of
+    ``img1`` (a tensor's; the CPU for numpy arrays), the network cached per
+    weights path and device; None without weights."""
     if weights_path is None:
         return None
-    raise NotImplementedError(
-        "LPIPS is not ported to coponerf_tpu_torch yet (ROADMAP P8); run without --lpips_weights "
-        "and with --allow_missing_lpips"
-    )
+    import torch
+
+    from coponerf_tpu_torch.eval.lpips import LPIPSVGG
+
+    device = img1.device if torch.is_tensor(img1) else "cpu"
+    return LPIPSVGG.get(weights_path, device)(img1, img2)
 
 
 def overlap_bin(overlap: float) -> str:

@@ -6,17 +6,20 @@
 The flags are those of the JAX package's ``test.py`` plus ``--device``: the
 run goes on the CUDA device unless ``--device cpu`` is given, and without a
 CUDA device and without that flag it exits 2.  It runs the chunked
-dual-hypothesis eval protocol (``eval/harness.py``) and prints PSNR, SSIM
+dual-hypothesis eval protocol (``eval/harness.py``) and prints PSNR, SSIM,
+LPIPS (with ``--lpips_weights``, an ``.npz`` of ``eval/lpips.py``'s layout)
 and the pose errors binned by overlap {small<0.5, 0.5<=medium<=0.75,
 large>0.75}.  The checkpoint is one written by the port
-(``training/checkpoint.py``).  Not ported yet (ROADMAP): LPIPS (P8), the
-import of the reference's ``.pth`` weights and the image summaries, so
-``--logging_root`` and ``--experiment_name`` are accepted and unused.
+(``training/checkpoint.py``, ``.pt``) or the reference's released weights
+(``.pth``, imported by ``utils/torch_import.py``).  Image panels and pose
+scalars go to ``<logging_root>/<experiment_name>/summaries``
+(``metrics.jsonl``, and TensorBoard where it imports).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 from coponerf_tpu_torch.config import ModelConfig
@@ -35,7 +38,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch_size", type=int, default=2)
     p.add_argument("--views", type=int, default=2)
     p.add_argument("--n_skip", type=int, default=50)
-    p.add_argument("--checkpoint_path", default=None, help="a checkpoint written by the port (.pt)")
+    p.add_argument("--checkpoint_path", default=None,
+                   help="a checkpoint written by the port (.pt) or the reference's weights (.pth)")
     p.add_argument("--max_batches", type=int, default=None)
     p.add_argument("--chunk", type=int, default=4096)
     p.add_argument("--lpips_weights", type=str, default=None)
@@ -64,9 +68,6 @@ def main(argv=None) -> int:
                          "--allow_missing_lpips to run without the LPIPS column.")
     if not opt.checkpoint_path:
         raise SystemExit("--checkpoint_path is required for evaluation")
-    if opt.checkpoint_path.endswith(".pth"):
-        raise SystemExit("importing the reference's .pth weights is not ported to coponerf_tpu_torch yet "
-                         "(ROADMAP, Queue 1); pass a checkpoint written by the port (.pt)")
     import torch
 
     if opt.device == "cuda" and not torch.cuda.is_available():
@@ -75,6 +76,7 @@ def main(argv=None) -> int:
     from coponerf_tpu_torch.eval.harness import evaluate
     from coponerf_tpu_torch.models import CoPoNeRF
     from coponerf_tpu_torch.training.checkpoint import load_weights
+    from coponerf_tpu_torch.training.trainer import MetricLogger
 
     if opt.dataset == "acid":
         from coponerf_tpu_torch.data.acid import ACIDVis as Vis
@@ -89,12 +91,16 @@ def main(argv=None) -> int:
         fast_sampling=opt.fast,
         compute_dtype="bfloat16" if opt.fast else "float32",
     ), image_size=image_size).eval().to(opt.device)
-    load_weights(model, opt.checkpoint_path)
-    acc = evaluate(
-        model, dataset, batch_size=opt.batch_size, chunk=opt.chunk, max_batches=opt.max_batches,
-        lpips_weights=opt.lpips_weights, image_size=image_size, prune_invalid=opt.prune_invalid,
-        drop_last=not opt.include_tail, num_workers=opt.num_workers,
-    )
+    load_weights(model, opt.checkpoint_path, image_size)
+    logger = MetricLogger(os.path.join(opt.logging_root, opt.experiment_name, "summaries"))
+    try:
+        acc = evaluate(
+            model, dataset, batch_size=opt.batch_size, chunk=opt.chunk, max_batches=opt.max_batches,
+            lpips_weights=opt.lpips_weights, image_size=image_size, prune_invalid=opt.prune_invalid,
+            drop_last=not opt.include_tail, num_workers=opt.num_workers, logger=logger,
+        )
+    finally:
+        logger.close()
     print(acc.format())
     return 0
 

@@ -45,10 +45,17 @@ def restore_into(state, path: str):
     return state
 
 
-def load_weights(model, path: str):
-    """Load the weights and BatchNorm buffers of a checkpoint written by
-    ``save`` into ``model`` (strict) and return it: what evaluation needs."""
+def load_weights(model, path: str, image_size: int = 256):
+    """Load weights and BatchNorm buffers into ``model`` (strict) and return
+    it: what evaluation needs.  A ``.pth`` file is a reference checkpoint,
+    imported by ``utils/torch_import.py`` for ``model``'s configuration at
+    ``image_size``; any other is a checkpoint written by ``save``."""
     device = next(model.parameters()).device
-    payload = torch.load(path, map_location=device, weights_only=True)
-    model.load_state_dict(payload["model"], strict=True)
+    if path.endswith(".pth"):
+        from coponerf_tpu_torch.utils.torch_import import import_reference
+
+        sd = import_reference(path, model.cfg, image_size)
+    else:
+        sd = torch.load(path, map_location=device, weights_only=True)["model"]
+    model.load_state_dict(sd, strict=True)
     return model

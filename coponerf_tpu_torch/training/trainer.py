@@ -22,8 +22,9 @@ import dataclasses
 import json
 import os
 import time
-from typing import Any, Dict, Iterable, Optional
+from typing import Any, Callable, Dict, Iterable, Optional
 
+import numpy as np
 import torch
 
 from coponerf_tpu_torch.config import Config
@@ -104,27 +105,58 @@ def train_step(state: TrainState, batch: Dict[str, Any], cfg: Config) -> Dict[st
 
 
 class MetricLogger:
-    """Appends one JSON object per logged step to ``<logdir>/metrics.jsonl``."""
+    """Scalars to ``<logdir>/metrics.jsonl`` always; scalars and images to
+    TensorBoard as well when ``torch.utils.tensorboard`` imports, else the
+    images as ``<logdir>/images/<tag>_<step>.png``."""
 
     def __init__(self, logdir: str):
         os.makedirs(logdir, exist_ok=True)
+        self._logdir = logdir
         self._f = open(os.path.join(logdir, "metrics.jsonl"), "a")
+        self._tb = None
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+
+            self._tb = SummaryWriter(logdir, flush_secs=10)
+        except ImportError:
+            pass
 
     def log(self, step: int, metrics: Dict[str, Any]) -> None:
         clean = {k: float(v) for k, v in metrics.items()}
         self._f.write(json.dumps({"step": step, **clean}) + "\n")
         self._f.flush()
+        if self._tb is not None:
+            for k, v in clean.items():
+                self._tb.add_scalar(k, v, step)
+
+    def log_image(self, step: int, tag: str, img) -> None:
+        """An (H, W, 3) image in [0, 1]."""
+        if self._tb is not None:
+            self._tb.add_image(tag, img, step, dataformats="HWC")
+            return
+        from coponerf_tpu_torch.utils.png import write_png
+
+        img_dir = os.path.join(self._logdir, "images")
+        os.makedirs(img_dir, exist_ok=True)
+        # TensorBoard's conversion of a float image: scale by 255, clip, truncate
+        u8 = np.clip(np.asarray(img, np.float32) * 255.0, 0, 255).astype(np.uint8)
+        write_png(os.path.join(img_dir, f"{tag}_{step:08d}.png"), u8)
 
     def close(self) -> None:
         self._f.close()
+        if self._tb is not None:
+            self._tb.close()
 
 
 def train(cfg: Config, batches: Iterable, num_steps: int, state: TrainState, device,
-          log_every: int = 10) -> TrainState:
+          log_every: int = 10, val_fn: Optional[Callable] = None) -> TrainState:
     """Run ``num_steps`` steps over ``batches`` (numpy batches in the
     ``data.synthetic.make_batch`` schema, cycled if exhausted), logging to
     ``<logging_root>/<experiment_name>/summaries`` and checkpointing to
-    ``.../checkpoints`` at the JAX loop's cadences; returns the state."""
+    ``.../checkpoints`` at the JAX loop's cadences; returns the state.
+    ``val_fn(state, step, logger)`` (``training/validation.py``) runs every
+    ``steps_til_summary`` steps, after the rolling ``model_current``
+    checkpoint."""
     logdir = os.path.join(cfg.logging_root, cfg.experiment_name)
     logger = MetricLogger(os.path.join(logdir, "summaries"))
     ckpt_dir = os.path.join(logdir, "checkpoints")
@@ -148,6 +180,8 @@ def train(cfg: Config, batches: Iterable, num_steps: int, state: TrainState, dev
                 ckpt_lib.save(ckpt_dir, state, step, name=f"model_epoch_{step // steps_per_epoch:04d}")
             if step and step % cfg.train.steps_til_summary == 0:
                 ckpt_lib.save(ckpt_dir, state, step, name="model_current")
+                if val_fn is not None:
+                    val_fn(state, step, logger)
         ckpt_lib.save(ckpt_dir, state, num_steps, name="model_final")
     finally:
         logger.close()

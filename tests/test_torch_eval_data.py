@@ -4,13 +4,17 @@ The readers (``coponerf_tpu_torch/data/``) and the loader are copies of the
 JAX package's numpy pipeline: on fabricated scene archives (the fixture of
 ``tests/test_data.py``) they give the same items, poses, intrinsics and
 overlaps exactly.  ``eval/metrics.py`` equals the JAX package's exactly.
-``python -m coponerf_tpu_torch.test`` runs end to end with ``--device
-cpu`` on a small fabricated archive with a narrow model (swapped in by
-monkeypatching, the entry has no such flag) and a checkpoint written by
-the port.
+A scene directory with a native ``scene.cache`` is read through it.
+``lpips_vgg`` matches the JAX package's on random weights.  ``python -m
+coponerf_tpu_torch.test`` runs end to end with ``--device cpu`` on a small
+fabricated archive with a narrow model (swapped in by monkeypatching, the
+entry has no such flag), from a checkpoint written by the port and from
+the same weights as a reference ``.pth``, writing its summaries under
+``--logging_root``.
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -20,6 +24,7 @@ from scipy.io import savemat
 from coponerf_tpu.data import acid as j_acid
 from coponerf_tpu.data import realestate as j_re
 from coponerf_tpu.data.loader import PrefetchLoader as JPrefetchLoader
+from coponerf_tpu.eval import lpips_jax
 from coponerf_tpu.eval import metrics as JM
 from coponerf_tpu_torch import test as entry
 from coponerf_tpu_torch.data import acid as t_acid
@@ -27,6 +32,7 @@ from coponerf_tpu_torch.data import realestate as t_re
 from coponerf_tpu_torch.data.loader import PrefetchLoader, make_loader
 from coponerf_tpu_torch.data.scene_dataset import SceneDatasetConfig, VisSceneDataset
 from coponerf_tpu_torch.eval import metrics as TM
+from torch_reference_keys import port_to_reference
 
 torch.set_num_threads(2)
 
@@ -136,18 +142,28 @@ def test_shuffled_serial_loader_matches_jax(fake_root):
 
 
 def test_scene_cache_raises(tmp_path):
-    """A native scene.cache file is refused (the cache is not ported), unless
-    the dataset is built with use_cache=False."""
+    """A native scene.cache file is read through the cache (the port's
+    ``data/fast_loader.py``), giving the item the npz path gives
+    (use_cache=False): at 32^2 the crop needs no resize, so the C++ and the
+    numpy conversion agree bit for bit."""
+    from coponerf_tpu_torch.data.fast_loader import write_cache
+
     img_root, pose_root, _ = _fabricate(tmp_path, 1, 24, (32, 57))
-    (tmp_path / "train" / "scene000" / "scene.cache").write_bytes(b"")
+    sdir = tmp_path / "train" / "scene000"
+    data = np.load(sdir / "data.npz")
+    names = sorted(data.keys(), key=lambda n: int(n.split(".")[0]))
+    write_cache(str(sdir / "scene.cache"), np.array([int(n.split(".")[0]) for n in names], np.int64),
+                np.stack([data[n] for n in names]))
     cfg = SceneDatasetConfig(img_root=img_root, pose_root=pose_root, image_size=32, base_hw=(32, 57), min_frames=20)
-    with pytest.raises(NotImplementedError):
-        VisSceneDataset(cfg)[0]
-    item, _, _ = VisSceneDataset(dataclasses.replace(cfg, use_cache=False))[0]
-    assert item["context"]["rgb"].shape == (2, 32, 32, 3)
+    cached = VisSceneDataset(cfg)
+    item = cached[0]
+    assert len(cached._cache_handles) == 1
+    plain = VisSceneDataset(dataclasses.replace(cfg, use_cache=False))
+    _assert_same(item, plain[0])
+    assert not plain._cache_handles and item[0]["context"]["rgb"].shape == (2, 32, 32, 3)
 
 
-def test_metrics_match_jax():
+def test_metrics_match_jax(tmp_path):
     rng = np.random.RandomState(0)
     a, b = rng.rand(2, 24, 24, 3), rng.rand(2, 24, 24, 3)
     for x, y in ((a[0], b[0]), (a[1], a[1]), (a[0], np.clip(a[0] + 0.05, 0, 1))):
@@ -168,8 +184,9 @@ def test_metrics_match_jax():
     assert ta.summary() == ja.summary()
     assert ta.format() == ja.format()
     assert TM.lpips_vgg(a[0], b[0]) is None
-    with pytest.raises(NotImplementedError):
-        TM.lpips_vgg(a[0], b[0], "lpips_vgg.npz")
+    weights = lpips_jax.make_random_weights(str(tmp_path / "lpips_vgg.npz"))
+    assert TM.lpips_vgg(a[0] * 2 - 1, b[0] * 2 - 1, weights) == pytest.approx(
+        JM.lpips_vgg(a[0] * 2 - 1, b[0] * 2 - 1, weights), rel=1e-5)
 
 
 # --------------------------------------------------------- the entry point --
@@ -194,6 +211,9 @@ def small_archive(tmp_path_factory):
         state = trainer.create_train_state(Config(model=mcfg), 32, "cpu",
                                            model=init_weights(CoPoNeRF(mcfg, image_size=32), seed=0))
         ckpts[fast] = checkpoint.save(str(root / f"ckpt_{fast}"), state, step=0)
+    # the exact model's weights as a reference (.pth) checkpoint
+    ckpts["pth"] = str(root / "reference.pth")
+    torch.save({"model": port_to_reference(torch.load(ckpts[False], weights_only=True)["model"])}, ckpts["pth"])
     return img_root, pose_root, overlap, ckpts
 
 
@@ -213,11 +233,12 @@ def narrow_entry(monkeypatch):
 
 
 @pytest.mark.parametrize("fast", [False, True])
-def test_entry_evaluates_on_cpu(small_archive, narrow_entry, capsys, fast):
+def test_entry_evaluates_on_cpu(small_archive, narrow_entry, capsys, fast, tmp_path):
+    """The full table, and the summaries' scalars under --logging_root."""
     img_root, pose_root, overlap, ckpts = small_archive
     argv = ["--data_root", img_root, "--pose_root", pose_root, "--overlap", overlap, "--checkpoint_path",
             ckpts[fast], "--device", "cpu", "--max_batches", "1", "--allow_missing_lpips", "--batch_size", "1",
-            "--chunk", "400"] + (["--fast"] if fast else [])
+            "--chunk", "400", "--logging_root", str(tmp_path)] + (["--fast"] if fast else [])
     with pytest.warns(UserWarning, match="LPIPS"):
         assert narrow_entry.main(argv) == 0
     out = capsys.readouterr().out
@@ -226,17 +247,29 @@ def test_entry_evaluates_on_cpu(small_archive, narrow_entry, capsys, fast):
     vals = dict(kv.split(": ") for kv in last[0][len("all: "):].split(", "))
     for k in ("psnr_avg", "ssim_avg", "rot_avg", "trans_avg", "angle_trans_avg", "rays_per_sec_avg"):
         assert np.isfinite(float(vals[k])), k
+    logged = [json.loads(line) for line in open(tmp_path / "eval" / "summaries" / "metrics.jsonl")]
+    assert len(logged) == 1 and logged[0]["step"] == 0 and np.isfinite(logged[0]["val_ent"])
 
 
-def test_entry_refusals(small_archive, narrow_entry, monkeypatch):
-    """No CUDA and no --device cpu: exit 2.  A .pth checkpoint, no
-    checkpoint, or no LPIPS decision: refused with a message."""
+def test_entry_refusals(small_archive, narrow_entry, monkeypatch, capsys, tmp_path):
+    """No CUDA and no --device cpu: exit 2.  No checkpoint or no LPIPS
+    decision: refused with a message.  A reference .pth checkpoint loads
+    and evaluates as the same weights' port checkpoint does, the full
+    protocol with the LPIPS column (random VGG weights)."""
     img_root, pose_root, _, ckpts = small_archive
     base = ["--data_root", img_root, "--pose_root", pose_root]
+    weights = lpips_jax.make_random_weights(str(tmp_path / "lpips_vgg.npz"))
+    run = ["--device", "cpu", "--max_batches", "1", "--lpips_weights", weights, "--batch_size", "1", "--chunk",
+           "400", "--logging_root", str(tmp_path)]
+    tables = []
+    for ckpt in (ckpts["pth"], ckpts[False]):
+        assert narrow_entry.main(base + ["--checkpoint_path", ckpt] + run) == 0
+        tables.append([line for line in capsys.readouterr().out.splitlines() if line.startswith("all: ")][-1])
+    drop = lambda t: [kv for kv in t.split(", ") if not kv.startswith("rays_per_sec")]
+    assert drop(tables[0]) == drop(tables[1]) and any(kv.startswith("lpips_avg") for kv in drop(tables[0]))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert narrow_entry.main(base + ["--checkpoint_path", ckpts[False], "--allow_missing_lpips"]) == 2
-    for extra, match in ((["--checkpoint_path", "w.pth", "--allow_missing_lpips"], "ROADMAP"),
-                         (["--allow_missing_lpips"], "checkpoint_path"),
+    for extra, match in ((["--allow_missing_lpips"], "checkpoint_path"),
                          (["--checkpoint_path", ckpts[False]], "lpips")):
         with pytest.raises(SystemExit, match=match):
             narrow_entry.main(base + extra + ["--device", "cpu"])

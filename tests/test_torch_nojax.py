@@ -1,8 +1,11 @@
 """The port runs without JAX: an inference render (also with both
 ``render(fusion=...)`` options), a train step, the latter also with
-``fused_argmax=True``, the evaluation layer (harness, metrics, overlap,
-scene readers, loader, the ``test`` entry) and the sampler bench load no
-module of ``jax``, ``flax`` or the JAX package ``coponerf_tpu``.  On CPU
+``fused_argmax=True``, the evaluation layer (harness, metrics, LPIPS,
+overlap, scene readers, the native scene cache, loader, the ``test``
+entry), a camera path, in-training validation with its summaries, the
+``.pth`` import, the ``train`` and ``render_path`` entries and the sampler
+bench load no module of ``jax``, ``flax`` or the JAX package
+``coponerf_tpu``.  On CPU
 tensors its kernel wrappers take the plain versions without counting a
 launch."""
 
@@ -37,10 +40,14 @@ torch.set_num_threads(2)
 import coponerf_tpu_torch
 import coponerf_tpu_torch.test
 import coponerf_tpu_torch.bench_kernels
+import coponerf_tpu_torch.render_path
+import coponerf_tpu_torch.train
+import tempfile
 from coponerf_tpu_torch.config import Config, LossConfig, ModelConfig, TrainConfig
-from coponerf_tpu_torch.data import acid, loader, realestate, scene_dataset
-from coponerf_tpu_torch.eval import harness, metrics, overlap
-from coponerf_tpu_torch.utils import cli
+from coponerf_tpu_torch.data import acid, fast_loader, loader, realestate, scene_dataset
+from coponerf_tpu_torch.eval import harness, lpips, metrics, overlap, trajectory
+from coponerf_tpu_torch.training import summaries, validation
+from coponerf_tpu_torch.utils import cli, png, torch_import
 from coponerf_tpu_torch.data.synthetic import make_batch
 from coponerf_tpu_torch.models import CoPoNeRF, batch_to_torch
 from coponerf_tpu_torch.training import trainer
@@ -69,6 +76,24 @@ tcfg = Config(model=cfg, loss=LossConfig(pose=True, cycle=True, ssim=True), trai
 state = trainer.create_train_state(tcfg, 32, "cpu", model=model)
 metrics = trainer.train_step(state, batch_to_torch(make_batch(batch_size=2, image_size=32, n_rays=8, seed=1)[0], "cpu"), tcfg)
 assert state.updates == 1 and all(torch.isfinite(v) for v in metrics.values())
+class Logger:
+    def __init__(self):
+        self.tags = []
+    def log(self, step, m):
+        self.tags += list(m)
+    def log_image(self, step, tag, img):
+        self.tags.append(tag)
+vlog = Logger()
+vb = make_batch(batch_size=1, image_size=32, n_rays=32 * 32, seed=3, full_query_image=True)
+validation.make_val_fn(tcfg, [vb], chunk=512, image_size=32)(state, 1, vlog)
+assert "val_img_loss" in vlog.tags and "val_epipolar_pred" in vlog.tags, vlog.tags
+model.eval()
+frames = trajectory.render_trajectory(model, batch, n_frames=2, image_size=32, chunk=512)
+assert frames.shape == (2, 32, 32, 3)
+with tempfile.TemporaryDirectory() as d:
+    acc = harness.evaluate(model, [item], batch_size=1, chunk=512, image_size=32, verbose=False,
+                           lpips_weights=lpips.make_random_weights(d + "/lpips.npz"))
+    assert len(acc.metrics["all"]["lpips"]) == 1
 fcfg = dataclasses.replace(tcfg, model=dataclasses.replace(cfg, fused_argmax=True))
 fstate = trainer.create_train_state(fcfg, 32, "cpu", model=init_weights(CoPoNeRF(fcfg.model, image_size=32), seed=0))
 metrics = trainer.train_step(fstate, batch_to_torch(make_batch(batch_size=2, image_size=32, n_rays=8, seed=1)[0], "cpu"), fcfg)

@@ -1,0 +1,152 @@
+"""The training loop's validation hook and ``python -m
+coponerf_tpu_torch.train`` on real-dataset readers, on the CPU.
+
+``train(val_fn=...)`` calls ``val_fn`` after the rolling ``model_current``
+checkpoint at every ``steps_til_summary``-th step.  The entry takes two
+steps on a fabricated RealEstate10K archive through the port's readers
+and loader, validates on it (``--val_root``), and writes checkpoints and
+finite losses and ``val_*`` terms.  What ``make_val_fn`` computes is held
+to the JAX package's in ``tests/test_torch_validation.py``.
+"""
+
+import json
+import os
+
+import numpy as np
+import torch
+from scipy.io import savemat
+
+from coponerf_tpu_torch import config as tconfig
+from coponerf_tpu_torch import train as train_entry
+from coponerf_tpu_torch.config import Config, ModelConfig, TrainConfig
+from coponerf_tpu_torch.data.scene_dataset import SceneDataset, SceneDatasetConfig
+from coponerf_tpu_torch.data.synthetic import make_batch
+from coponerf_tpu_torch.training import trainer
+
+torch.set_num_threads(2)
+
+IMG = 32
+CFG_KW = dict(npoints=4, ufc_layer_nums=(1, 1, 1), mask_upsample=IMG)
+
+
+def test_train_calls_val_fn_every_summary_interval(tmp_path):
+    """``train(val_fn=...)`` calls it after the rolling ``model_current``
+    checkpoint at every ``steps_til_summary``-th step, with the loop's logger."""
+    cfg = Config(model=ModelConfig(**CFG_KW), train=TrainConfig(steps_til_summary=1, epochs_til_ckpt=0,
+                                                                 iters_til_ckpt=0),
+                 logging_root=str(tmp_path), experiment_name="val")
+    state = trainer.create_train_state(cfg, IMG, "cpu")
+    seen = []
+
+    def val_fn(st, step, logger):
+        assert st is state and hasattr(logger, "log_image")
+        assert os.path.exists(tmp_path / "val" / "checkpoints" / "model_current.pt")
+        seen.append((step, st.step))
+
+    batches = [make_batch(batch_size=1, image_size=IMG, n_rays=8, seed=s)[0] for s in (1, 2)]
+    trainer.train(cfg, batches, num_steps=3, state=state, device="cpu", val_fn=val_fn)
+    assert seen == [(1, 2), (2, 3)]
+
+
+def _fabricate(root, n_frames=120, hw=(32, 57)):
+    img_root = root / "train"
+    rng = np.random.RandomState(0)
+    tables = {}
+    for s in range(2):
+        name = f"scene{s:03d}"
+        (img_root / name).mkdir(parents=True)
+        frames, rows = {}, []
+        for i in range(n_frames):
+            frames[f"{1000 * i}.png"] = rng.randint(0, 255, (*hw, 3), np.uint8)
+            w2c = np.eye(4)
+            w2c[0, 3] = 0.0137 * i
+            rows.append([1000 * i, 0.9, 0.9, 0.5, 0.5, 0, 0, *w2c[:3].reshape(-1)])
+        np.savez(img_root / name / "data.npz", **frames)
+        tables[name] = np.array(rows, np.float64)
+    savemat(root / "train.mat", tables)
+    return str(img_root), str(root / "train.mat")
+
+
+def test_train_entry_on_a_realestate_archive(tmp_path, monkeypatch):
+    """Two steps on a fabricated RealEstate10K archive of 32 x 57 frames
+    (32^2 images; the readers' config and the model narrowed by
+    monkeypatching, the entry has no such flags) with validation after
+    step 1: checkpoints, the loss log and the ``val_*`` terms."""
+    img_root, pose_root = _fabricate(tmp_path)
+
+    def small(img_root, pose_root, num_ctxt_views=2, num_query_views=1, query_sparsity=None, augment=True):
+        return SceneDataset(SceneDatasetConfig(img_root=img_root, pose_root=pose_root, num_ctxt_views=num_ctxt_views,
+                                               num_query_views=num_query_views, query_sparsity=query_sparsity,
+                                               augment=augment, image_size=IMG, base_hw=(32, 57), seed=0))
+
+    monkeypatch.setattr(train_entry, "_dataset_class", lambda name: small)
+    monkeypatch.setattr(tconfig, "ModelConfig", lambda **kw: ModelConfig(**kw, npoints=4, ufc_layer_nums=(1, 1, 1)))
+    argv = ["--device", "cpu", "--dataset", "realestate10k", "--data_root", img_root, "--pose_root", pose_root,
+            "--val_root", img_root, "--val_batches", "1", "--experiment_name", "re10k", "--logging_root",
+            str(tmp_path / "logs"), "--batch_size", "1", "--query_sparsity", "16", "--max_steps", "2",
+            "--steps_til_summary", "1", "--num_workers", "0", "--pose", "--cycle", "--ssim", "--l2_coeff", "0.1",
+            "--depth", "--num_epochs", "3"]
+    assert train_entry.main(argv) == 0
+    run = tmp_path / "logs" / "re10k"
+    assert sorted(os.listdir(run / "checkpoints")) == ["model_current.pt", "model_final.pt"]
+    logged = [json.loads(line) for line in open(run / "summaries" / "metrics.jsonl")]
+    steps = {row["step"]: row for row in logged if "total_train_loss" in row}
+    assert sorted(steps) == [0] and np.isfinite(steps[0]["total_train_loss"])
+    val = {k: v for row in logged for k, v in row.items() if k.startswith("val_")}
+    for term in ("val_img_loss", "val_ssim_loss", "val_cycle_loss", "val_pose_loss", "val_ent"):
+        assert np.isfinite(val[term]), term
+    ck = torch.load(run / "checkpoints" / "model_final.pt", weights_only=True)
+    assert ck["step"] == 2 and ck["updates"] + ck["total_notfinite"] == 2
+
+
+def test_synthetic_pool_cycles_its_first_batches():
+    """``synthetic_batches(pool=2)`` yields the seed-1 and seed-2 batches of
+    the unpooled stream, then the same two again, bit for bit."""
+    pooled = train_entry.synthetic_batches(1, IMG, 8, pool=2)
+    got = [next(pooled) for _ in range(4)]
+    fresh = train_entry.synthetic_batches(1, IMG, 8)
+    want = [next(fresh) for _ in range(2)]
+    for g, w in zip(got, want + want):
+        for k in w:
+            for kk in w[k]:
+                np.testing.assert_array_equal(g[k][kk], w[k][kk])
+    assert not np.array_equal(got[0]["query"]["rgb"], got[1]["query"]["rgb"])
+
+
+def test_train_entry_with_a_synthetic_pool(tmp_path, monkeypatch):
+    """``--dataset synthetic --synthetic_pool 1`` takes three steps on one
+    batch (narrow model by monkeypatching) and logs finite losses."""
+    monkeypatch.setattr(tconfig, "ModelConfig", lambda **kw: ModelConfig(**kw, npoints=4, ufc_layer_nums=(1, 1, 1)))
+    argv = ["--device", "cpu", "--dataset", "synthetic", "--synthetic_pool", "1", "--image_size", str(IMG),
+            "--experiment_name", "pool", "--logging_root", str(tmp_path), "--batch_size", "1",
+            "--query_sparsity", "8", "--max_steps", "3", "--steps_til_summary", "100"]
+    assert train_entry.main(argv) == 0
+    logged = [json.loads(line) for line in open(tmp_path / "pool" / "summaries" / "metrics.jsonl")]
+    assert [row["step"] for row in logged] == [0] and np.isfinite(logged[0]["total_train_loss"])
+    ck = torch.load(tmp_path / "pool" / "checkpoints" / "model_final.pt", weights_only=True)
+    assert ck["step"] == 3
+
+
+def test_metric_logger_writes_pngs_without_tensorboard(tmp_path, monkeypatch):
+    """Where ``torch.utils.tensorboard`` does not import, ``log_image``
+    writes ``images/<tag>_<step>.png`` holding the bytes TensorBoard would
+    keep: the image scaled by 255, clipped and truncated, as
+    ``torch.utils.tensorboard.summary.image`` encodes it."""
+    import io
+    import sys
+
+    from PIL import Image
+
+    img = np.random.RandomState(0).uniform(-0.1, 1.1, (20, 30, 3)).astype(np.float32)
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    logger = trainer.MetricLogger(str(tmp_path))
+    logger.log(4, {"a": 1.5})
+    logger.log_image(4, "val_predictions", img)
+    logger.close()
+    monkeypatch.undo()
+    got = np.asarray(Image.open(tmp_path / "images" / "val_predictions_00000004.png"))
+    from torch.utils.tensorboard import summary
+
+    tb = summary.image("t", img, dataformats="HWC").value[0].image.encoded_image_string
+    np.testing.assert_array_equal(got, np.asarray(Image.open(io.BytesIO(tb))))
+    assert [json.loads(line) for line in open(tmp_path / "metrics.jsonl")] == [{"step": 4, "a": 1.5}]
