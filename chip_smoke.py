@@ -97,7 +97,20 @@ result line:
      K2 2, K3 4 a chunk);
   7. one train step on the card and on the CPU from the same weights and
      batch (64^2, batch 1), unfused and fused, losses and grad norm
-     compared at the fast config's bound.
+     compared at the fast config's bound;
+  8. the multi-rank paths (coponerf_tpu_torch/parallel): (a) NCCL over one
+     rank in this process, the data-parallel train step against the plain
+     one from the same weights on the same batch (fast config, batch 6),
+     losses bit for bit, grad norm 1e-2, steps in turns and the gradient
+     all-reduce timed; (b) two gloo ranks spawned on this card, each
+     taking data-parallel steps on its pair of a global batch of 2 (fast
+     config, cycle + SSIM), against this process's step on the whole batch
+     (losses at bf16 level, 1e-2, grad norm 1e-2); (c) in the same ranks the 65536-ray cf[16, 4]
+     request ray-sharded, one 32768-ray chunk a rank, bit for bit this
+     process's chunked render on every rank; (d) with two cards or more,
+     (b) and (c) over NCCL, one card a rank (otherwise one line says it did
+     not run).  Each rank counts its own launches, checked per step and
+     per render, and reported under paths of their own.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.  The script imports only coponerf_tpu_torch.
 """
@@ -158,6 +171,44 @@ TRAIN_RAYS = 192
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def kernel_counters():
+    """{kernel name: its wrapper}; each wrapper counts its launches in
+    ``.launches`` (K2's counts its f32 kernel's apart as well)."""
+    from coponerf_tpu_torch.ops.attn_embed import round1_logits, round2_logits
+    from coponerf_tpu_torch.ops.bilinear_sample import (bilinear_sample, corner_sample, grid_sample_window,
+                                                        multilevel_sample, onehot_transpose_matmul)
+    from coponerf_tpu_torch.ops.render_core import render_core
+    from coponerf_tpu_torch.ops.soft_argmax import soft_argmax_bwd, soft_argmax_stats
+    from coponerf_tpu_torch.ops.split_matmul import split_dense_relu
+    from coponerf_tpu_torch.ops.weighted_sum import weighted_sum_smaj
+
+    counters = {"bilinear_sample": bilinear_sample, "corner_sample": corner_sample,
+                "split_dense_relu": split_dense_relu, "weighted_sum_smaj": weighted_sum_smaj,
+                "onehot_transpose_matmul": onehot_transpose_matmul, "soft_argmax_stats": soft_argmax_stats,
+                "soft_argmax_bwd": soft_argmax_bwd, "round1_logits": round1_logits,
+                "round2_logits": round2_logits, "render_core": render_core,
+                "multilevel_sample": multilevel_sample, "grid_sample_window": grid_sample_window}
+    assert set(counters) | {"split_dense_relu_f32"} == set(KERNELS)
+    return counters
+
+
+def reset_launches() -> None:
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    counters["split_dense_relu"].f32_launches = 0
+
+
+def read_launches() -> dict:
+    """Every kernel's launches since ``reset_launches``, K2's bf16 and f32
+    kernels apart."""
+    counters = kernel_counters()
+    got = {k: c.launches for k, c in counters.items()}
+    got["split_dense_relu_f32"] = counters["split_dense_relu"].f32_launches
+    got["split_dense_relu"] -= got["split_dense_relu_f32"]
+    return {k: got[k] for k in KERNELS}
 
 
 def cuda_ms(fn, reps: int = 5, inner: int = 10) -> float:
@@ -1195,6 +1246,250 @@ def phase_scene_cache(card: str) -> None:
         raise RuntimeError("the native scene cache disagrees with the numpy path")
 
 
+PER_TRAIN_STEP = dict(bilinear_sample=6, split_dense_relu=2, onehot_transpose_matmul=6)
+# a cf[16, 4] chunk: K8a once per sample set and stage, K2 as often, K3 twice as often
+PER_CF_CHUNK = dict(multilevel_sample=4, split_dense_relu=4, weighted_sum_smaj=8)
+DP_PAIRS = 2            # the global batch of the multi-rank train step
+
+
+def dp_configs(pose: bool):
+    """(phase 6's fast train config, with or without the pose term, and the
+    cf[16, 4] inference config)."""
+    from coponerf_tpu_torch.config import Config, LossConfig, ModelConfig, TrainConfig
+
+    tcfg = Config(model=ModelConfig(fast_sampling=True, compute_dtype="bfloat16"),
+                  loss=LossConfig(pose=pose, cycle=True, ssim=True), train=TrainConfig())
+    return tcfg, ModelConfig(fast_sampling=True, compute_dtype="bfloat16", coarse_samples=16, fine_samples=4)
+
+
+def dp_batches():
+    """(the global train batch of ``DP_PAIRS`` pairs, the 65536-ray request), numpy."""
+    from coponerf_tpu_torch.data.synthetic import make_batch
+
+    train = make_batch(batch_size=DP_PAIRS, image_size=IMAGE, n_rays=TRAIN_RAYS, seed=1)[0]
+    request = make_batch(batch_size=1, image_size=IMAGE, n_rays=2 * CHUNK, full_query_image=True, seed=0)[0]
+    return train, request
+
+
+def parallel_rank(rank: int, world: int, n_steps: int, pose: bool):
+    """One rank of phase 8 (b)-(d), in its own process on its card: the
+    ray-sharded render of the request (one 32768-ray chunk a rank), then
+    ``n_steps`` data-parallel train steps on the rank's pair of the global
+    batch, from rank 0's seeded weights.  Returns the render's outputs, the
+    steps' metrics, times and launch counts (counted here, in the rank)."""
+    from coponerf_tpu_torch.models import CoPoNeRF, batch_to_torch
+    from coponerf_tpu_torch.parallel.mesh import make_mesh, replicate, shard_batch
+    from coponerf_tpu_torch.parallel.render import render_ray_sharded
+    from coponerf_tpu_torch.training import trainer
+    from coponerf_tpu_torch.utils.init import init_weights
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    tcfg, icfg = dp_configs(pose)
+    model = CoPoNeRF(icfg, image_size=IMAGE)
+    if rank == 0:
+        init_weights(model, seed=0)
+    model = model.to(dev).eval()
+    rays = make_mesh((-1,), ("rays",))
+    replicate(rays, model)
+    train_np, request_np = dp_batches()
+    request = batch_to_torch(request_np, dev)
+    out = {"render_ms": [], "steps": []}
+    for _ in range(2):               # the first warms up
+        with torch.no_grad():
+            state = model.encode(request)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        image = render_ray_sharded(model, request, state, rays, chunk=CHUNK)
+        torch.cuda.synchronize()
+        out["render_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["render_launches"] = read_launches()
+    out["render"] = {k: v.cpu().numpy() for k, v in image.items()}
+    del state, image
+    tmodel = CoPoNeRF(tcfg.model, image_size=IMAGE)
+    tmodel.load_state_dict(model.state_dict())
+    del model
+    st = trainer.create_train_state(tcfg, IMAGE, dev, model=tmodel)
+    data = make_mesh((-1,), ("data",))
+    batch = batch_to_torch(shard_batch(data, train_np), dev)
+    for _ in range(n_steps):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        m = trainer.train_step(st, batch, tcfg, mesh=data)
+        torch.cuda.synchronize()
+        out["steps"].append(dict(ms=(time.perf_counter() - t0) * 1e3, launches=read_launches(),
+                                 metrics={k: float(v) for k, v in m.items()}))
+    return out
+
+
+def phase_parallel(dev, card: str, launches, pose: bool = False) -> None:
+    """8. the port's multi-rank paths on the card (``parallel/``):
+    (a) NCCL over one rank in this process: the data-parallel train step
+        and the plain one from the same weights on the same batch (fast
+        config, batch 6 x 256^2), losses bit for bit, grad norm within 1e-2
+        (K4's atomics), steps in turns, and the gradient all-reduce alone;
+    (b) two gloo ranks on this card: a data-parallel step on a global batch
+        of 2 pairs against this process's step on the same batch, pose
+        term off.  The ranks' encoder convolutions run at batch 1 and the
+        BatchNorm statistics are means of the ranks' means: f32 sums in
+        another order, which flip single bf16 roundings of the UFC, so the
+        losses are held at bf16 level, 1e-2 relative (phase 6's fused
+        against unfused 1e-4 does not hold: 7.4e-4 on an H100), the grad
+        norm at 1e-2 (1.3e-3).  With the pose term the grad norm differed
+        by 70 %: the reason phase 7 gives;
+    (c) in the same ranks, the ray-sharded render of the 65536-ray cf[16, 4]
+        request, one 32768-ray chunk a rank, against this process's chunked
+        render, bit for bit;
+    (d) with two cards or more, (b) and (c) over NCCL, one card a rank.
+    The ranks count their own launches, per step and per render."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from coponerf_tpu_torch.data.synthetic import make_batch
+    from coponerf_tpu_torch.models import CoPoNeRF, batch_to_torch
+    from coponerf_tpu_torch.parallel.launch import run_ranks
+    from coponerf_tpu_torch.parallel.mesh import average_gradients, init_distributed, make_mesh
+    from coponerf_tpu_torch.training import trainer
+    from coponerf_tpu_torch.utils.init import init_weights
+
+    tcfg, icfg = dp_configs(pose)
+    pcfg, _ = dp_configs(True)          # phase 6's losses
+    batch6 = batch_to_torch(make_batch(batch_size=TRAIN_BATCH, image_size=IMAGE, n_rays=TRAIN_RAYS, seed=1)[0], dev)
+    weights = init_weights(CoPoNeRF(pcfg.model, image_size=IMAGE), seed=0).state_dict()
+    tmp = tempfile.mkdtemp()
+    try:
+        # (a) NCCL, world 1, in this process
+        init_distributed("nccl", 0, 1, f"file://{tmp}/rendezvous", device=dev)
+        try:
+            mesh = make_mesh()
+            states = {}
+            for path in ("train_plain_a", "train_dp_nccl1"):
+                model = CoPoNeRF(pcfg.model, image_size=IMAGE)
+                model.load_state_dict(weights)
+                states[path] = trainer.create_train_state(pcfg, IMAGE, dev, model=model)
+            times = {p: [] for p in states}
+            first = {}
+            total = {p: dict.fromkeys(KERNELS, 0) for p in states}
+            expected = dict.fromkeys(KERNELS, 0)
+            expected.update(PER_TRAIN_STEP)
+            n_steps, n_warm = 5, 2
+            for i in range(n_steps):
+                for path in (tuple(states) if i % 2 == 0 else tuple(states)[::-1]):
+                    torch.cuda.synchronize()
+                    reset_launches()
+                    t0 = time.perf_counter()
+                    m = trainer.train_step(states[path], batch6, pcfg, mesh=mesh if path == "train_dp_nccl1" else None)
+                    torch.cuda.synchronize()
+                    times[path].append(time.perf_counter() - t0)
+                    got = read_launches()
+                    if got != expected:
+                        raise RuntimeError(f"(a) {path} step {i}: launches {got}, expected {expected}")
+                    for k in KERNELS:
+                        total[path][k] += got[k]
+                    first.setdefault(path, {k: float(v) for k, v in m.items()})
+            launches.update(total)
+            plain, dp = first["train_plain_a"], first["train_dp_nccl1"]
+            same = all(plain[k] == dp[k] for k in plain if k != "grad_norm")
+            rel = abs(plain["grad_norm"] - dp["grad_norm"]) / plain["grad_norm"]
+            med = {p: statistics.median(t[n_warm:]) * 1e3 for p, t in times.items()}
+            params = [p for p in states["train_dp_nccl1"].model.parameters()]
+            grads = [torch.randn_like(p) for p in params]
+            ar_ms = cuda_ms(lambda: average_gradients(mesh, grads), reps=5, inner=3)
+            n_bytes = sum(g.numel() * 4 for g in grads)
+            del grads, states
+            log(f"[parallel] (a) NCCL world 1, fast config, batch {TRAIN_BATCH} x 256^2: first step dp vs plain "
+                f"losses {'bit for bit' if same else 'DIFFER'}: " + ", ".join(f"{k} {dp[k]:.9g}/{plain[k]:.9g}"
+                                                                              for k in plain)
+                + f"; grad_norm rel {rel:.3e} (bound 1e-2) {'ok' if same and rel < 1e-2 else 'FAIL'}")
+            log(f"[parallel] (a) steps in turns, median of {n_steps - n_warm}: plain {med['train_plain_a']:.1f} ms, "
+                f"data-parallel {med['train_dp_nccl1']:.1f} ms: the collectives cost "
+                f"{med['train_dp_nccl1'] - med['train_plain_a']:.1f} ms a step; the flat gradient all-reduce alone "
+                f"{ar_ms:.2f} ms for {n_bytes / 2 ** 20:.0f} MiB ({n_bytes / ar_ms / 1e6:.0f} GB/s as a copy) [{card}]")
+            log(f"[parallel] (a) kernel launches over {n_steps} steps each: plain {launches['train_plain_a']}, "
+                f"data-parallel {launches['train_dp_nccl1']} (per step {expected}, checked at every step)")
+            if not (same and rel < 1e-2):
+                raise RuntimeError("the one-rank data-parallel step differs from the plain step")
+        finally:
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+
+        # this process's references for (b)-(d): the step on the global batch, the chunked render
+        train_np, request_np = dp_batches()
+        model = CoPoNeRF(tcfg.model, image_size=IMAGE)
+        model.load_state_dict(weights)
+        st = trainer.create_train_state(tcfg, IMAGE, dev, model=model)
+        ref_step = {k: float(v) for k, v in trainer.train_step(st, batch_to_torch(train_np, dev), tcfg).items()}
+        del st, model
+        imodel = CoPoNeRF(icfg, image_size=IMAGE)
+        imodel.load_state_dict(weights)
+        imodel = imodel.to(dev).eval()
+        request = batch_to_torch(request_np, dev)
+        with torch.no_grad():
+            state = imodel.encode(request)
+            outs = [imodel.render(slice_chunk(request, lo, lo + CHUNK), state, val=True)
+                    for lo in range(0, 2 * CHUNK, CHUNK)]
+        ray_axis = {"rgb": 2, "depth_ray": 1, "at_wt": 1}
+        ref_image = {k: torch.cat([o[k] for o in outs], dim=ax).cpu().numpy() for k, ax in ray_axis.items()}
+        del imodel, state, outs, request, batch6, weights
+        torch.cuda.empty_cache()
+
+        n_cards = torch.cuda.device_count()
+        runs = [("gloo2", "gloo", ["cuda:0", "cuda:0"], "(b)/(c) gloo, two ranks on one card")]
+        if n_cards >= 2:
+            runs.append(("nccl2", "nccl", ["cuda:0", "cuda:1"], "(d) NCCL, one card a rank"))
+        else:
+            log(f"[parallel] (d) NCCL with one card a rank: not run, {n_cards} card on this machine")
+        for tag, backend, devices, label in runs:
+            t0 = time.perf_counter()
+            ranks = run_ranks(parallel_rank, 2, backend, f"file://{tmp}/rendezvous_{tag}", args=(2, pose),
+                              devices=devices, deadline_s=400.0)
+            log(f"[parallel] {label}: both ranks done in {time.perf_counter() - t0:.1f} s (spawn, CUDA, build "
+                f"load, seeded init included)")
+            per_chunk = dict.fromkeys(KERNELS, 0)
+            per_chunk.update(PER_CF_CHUNK)
+            per_step = dict.fromkeys(KERNELS, 0)
+            per_step.update(PER_TRAIN_STEP)
+            for r, out in enumerate(ranks):
+                bitwise = all(np.array_equal(out["render"][k], ref_image[k]) for k in ray_axis)
+                log(f"[parallel] {label}, rank {r}: ray-sharded render of {2 * CHUNK} rays (one chunk a rank) "
+                    f"{out['render_ms'][1]:.1f} ms (first {out['render_ms'][0]:.1f} ms), the whole image on this "
+                    f"rank {'bit for bit' if bitwise else 'DIFFERS from'} this process's chunked render [{card}]")
+                if not bitwise:
+                    raise RuntimeError(f"{label}: rank {r}'s ray-sharded render differs from the single-process one")
+                if out["render_launches"] != per_chunk:
+                    raise RuntimeError(f"{label}: rank {r} render launches {out['render_launches']}, "
+                                       f"expected {per_chunk}")
+                launches[f"render_ray_sharded_{tag}_rank{r}"] = out["render_launches"]
+                total = dict.fromkeys(KERNELS, 0)
+                for i, s in enumerate(out["steps"]):
+                    if s["launches"] != per_step:
+                        raise RuntimeError(f"{label}: rank {r} step {i} launches {s['launches']}, expected {per_step}")
+                    for k in KERNELS:
+                        total[k] += s["launches"][k]
+                launches[f"train_dp_{tag}_rank{r}"] = total
+                got = out["steps"][0]["metrics"]
+                rel = {k: abs(got[k] - v) / (abs(v) + 1e-12) for k, v in ref_step.items()}
+                worst = max(v for k, v in rel.items() if k != "grad_norm")
+                good = worst < 1e-2 and rel["grad_norm"] < 1e-2
+                log(f"[parallel] {label}, rank {r}: first step on its pair of the global batch of {DP_PAIRS} vs "
+                    f"this process's step on the whole: " + ", ".join(f"{k} {got[k]:.6g}/{ref_step[k]:.6g}"
+                                                                       for k in ref_step)
+                    + f"; losses max rel {worst:.3e} (bound 1e-2), grad_norm rel {rel['grad_norm']:.3e} (bound "
+                      f"1e-2) {'ok' if good else 'FAIL'}; steps " + ", ".join(f"{s['ms']:.1f}" for s in out["steps"])
+                    + f" ms [{card}]")
+                if not good:
+                    raise RuntimeError(f"{label}: rank {r}'s data-parallel step differs from the single-process step")
+                if out["steps"][-1]["metrics"] != ranks[0]["steps"][-1]["metrics"]:
+                    raise RuntimeError(f"{label}: the ranks' metrics differ")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1204,13 +1499,6 @@ def main() -> int:
         from coponerf_tpu_torch.data.synthetic import make_batch
         from coponerf_tpu_torch.models import CoPoNeRF, batch_to_torch
         from coponerf_tpu_torch.ops import _build
-        from coponerf_tpu_torch.ops.attn_embed import round1_logits, round2_logits
-        from coponerf_tpu_torch.ops.render_core import render_core
-        from coponerf_tpu_torch.ops.bilinear_sample import (bilinear_sample, corner_sample, grid_sample_window,
-                                                            multilevel_sample, onehot_transpose_matmul)
-        from coponerf_tpu_torch.ops.soft_argmax import soft_argmax_bwd, soft_argmax_stats
-        from coponerf_tpu_torch.ops.split_matmul import split_dense_relu
-        from coponerf_tpu_torch.ops.weighted_sum import weighted_sum_smaj
         from coponerf_tpu_torch.training import trainer
         from coponerf_tpu_torch.utils.init import init_weights
     except ImportError as e:
@@ -1244,26 +1532,13 @@ def main() -> int:
     summary = {}
     phase_kernels(dev, summary, card)
     torch.cuda.empty_cache()
-    counters = {"bilinear_sample": bilinear_sample, "corner_sample": corner_sample,
-                "split_dense_relu": split_dense_relu, "weighted_sum_smaj": weighted_sum_smaj,
-                "onehot_transpose_matmul": onehot_transpose_matmul, "soft_argmax_stats": soft_argmax_stats,
-                "soft_argmax_bwd": soft_argmax_bwd, "round1_logits": round1_logits,
-                "round2_logits": round2_logits, "render_core": render_core,
-                "multilevel_sample": multilevel_sample, "grid_sample_window": grid_sample_window}
-    assert set(counters) | {"split_dense_relu_f32"} == set(KERNELS)
     launches = {}
 
     def count(path: str, fn):
-        """Run ``fn`` with every launch count set to 0 and keep the counts
-        (K2's wrapper counts its f32 kernel's launches apart)."""
-        for c in counters.values():
-            c.launches = 0
-        split_dense_relu.f32_launches = 0
+        """Run ``fn`` with every launch count set to 0 and keep the counts."""
+        reset_launches()
         result = fn()
-        got = {k: c.launches for k, c in counters.items()}
-        got["split_dense_relu_f32"] = split_dense_relu.f32_launches
-        got["split_dense_relu"] -= split_dense_relu.f32_launches
-        launches[path] = {k: got[k] for k in KERNELS}
+        launches[path] = read_launches()
         return result
 
     # 4. the inference path
@@ -1579,6 +1854,9 @@ def main() -> int:
               f"(CPU step {res['cpu_s']:.1f} s)")
         if not good:
             raise RuntimeError("card and CPU train steps disagree")
+
+    # 8. the multi-rank paths
+    phase_parallel(dev, card, launches)
 
     kernels = []
     for k in KERNELS:

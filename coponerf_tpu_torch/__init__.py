@@ -5,8 +5,9 @@ The port of the JAX package ``coponerf_tpu`` (which stays the reference):
 and in training, with the same module names, layouts and token orders, plus
 the losses, an Adam trainer with in-training validation, checkpoints (and
 the import of the reference's ``.pth`` weights), the evaluation harness
-with LPIPS and image summaries, camera-path rendering, and the ``python -m
-coponerf_tpu_torch.train``, ``python -m coponerf_tpu_torch.test`` and
+with LPIPS and image summaries, camera-path rendering, data-parallel
+training and the ray-sharded render over ``torch.distributed``, and the
+``python -m coponerf_tpu_torch.train``, ``python -m coponerf_tpu_torch.test`` and
 ``python -m coponerf_tpu_torch.render_path`` entry points.
 
 Layout:
@@ -23,6 +24,9 @@ Layout:
              image summaries (numpy drawing)
   eval/      the chunked-render evaluation harness, metrics, LPIPS-VGG,
              overlap table, camera-path rendering
+  parallel/  process meshes, batch shards and the collectives of
+             data-parallel training (mesh), the ray-sharded render,
+             spawning the ranks of one machine (launch)
   utils/     JAX-params converter, the reference .pth import, the seeded
              parameter fill, the CLI parser, a zlib PNG writer
   csrc/      CUDA sources of the kernels

@@ -66,6 +66,10 @@ class TrainConfig:
     # dataloader steps per epoch; 0 = unknown, the decay then steps every
     # steps_til_summary (synthetic runs only)
     steps_per_epoch: int = 0
+    # the process mesh of data-parallel training (parallel/mesh.py make_mesh):
+    # one -1 takes the ranks the others leave; axes "data" and "rays"
+    mesh_shape: Tuple[int, ...] = (-1,)
+    mesh_axes: Tuple[str, ...] = ("data",)
 
 
 @dataclasses.dataclass(frozen=True)

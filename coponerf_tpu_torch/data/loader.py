@@ -12,8 +12,10 @@ Design notes:
     numpy/cv2 only).
   - Each worker reseeds numpy per (epoch, worker) — the reference's
     worker_init_fn parity (train.py:62-64).
-  - Batch order within an epoch is completion order (training shuffles
-    anyway, matching DataLoader-with-workers semantics).
+  - Batches come in task order: with ``rank``/``world`` (data-parallel
+    training) every rank walks the same shuffled order of global batches
+    and decodes only its rows of each, so one step's shares make up one
+    global batch.
   - As with any ``spawn``-based multiprocessing (torch DataLoader included),
     the entry script must guard its body with ``if __name__ == "__main__":``
     or workers re-execute it on import.
@@ -47,14 +49,19 @@ def _worker(dataset, task_q, result_q, base_seed: int):
 class PrefetchLoader:
     """Iterates collated batches produced by ``num_workers`` processes.
 
-    shuffle=True: endless stream over reshuffled epochs (training); batch
-    order is worker completion order.
+    shuffle=True: endless stream over reshuffled epochs (training), in
+    task order.
     shuffle=False: exactly one in-order epoch (eval).  With num_workers > 0
     the decode runs in worker processes and results are reassembled in task
     order (a bounded reorder buffer), so eval stays deterministic for
     deterministic-per-index datasets (VisSceneDataset et al.) while scene
     decode overlaps the consumer's device work — the reference's
     DataLoader-at-eval equivalent (test.py:130).
+
+    ``batch_size`` is the global batch; with ``world`` > 1 each batch holds
+    this ``rank``'s rows of it (``batch_size // world``, rows ``rank *
+    batch_size // world`` onward), the shuffled order being the same on
+    every rank.
     """
 
     def __init__(
@@ -66,7 +73,11 @@ class PrefetchLoader:
         num_workers: int = 8,
         prefetch: int = 4,
         drop_last: bool = True,
+        rank: int = 0,
+        world: int = 1,
     ):
+        if batch_size % world:
+            raise ValueError(f"a global batch of {batch_size} does not split over {world} ranks")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -74,6 +85,7 @@ class PrefetchLoader:
         self.num_workers = num_workers
         self.prefetch = max(1, prefetch)
         self.drop_last = drop_last
+        self.rank, self.world = rank, world
         self._procs = []
         self._task_q = None
         self._result_q = None
@@ -87,17 +99,25 @@ class PrefetchLoader:
         if self.shuffle:
             rng.shuffle(order)
         stop = len(order) - (self.batch_size - 1 if self.drop_last else 0)
-        return [order[s: s + self.batch_size] for s in range(0, stop, self.batch_size)]
+        per = self.batch_size // self.world
+        lo = self.rank * per
+        return [order[s: s + self.batch_size][lo: lo + per] for s in range(0, stop, self.batch_size)]
 
-    def _serial_iter(self) -> Iterator:
+    def _tasks(self) -> Iterator:
+        """(epoch, row indices) of each batch in order: one epoch, or with
+        ``shuffle`` reshuffled epochs without end."""
         rng = np.random.RandomState(self.seed)
         epoch = 0
         while True:
             for idxs in self._epoch_batches(rng, epoch):
-                yield collate([self.dataset[int(i)] for i in idxs])
+                yield epoch, idxs
             if not self.shuffle:
                 return
             epoch += 1
+
+    def _serial_iter(self) -> Iterator:
+        for _, idxs in self._tasks():
+            yield collate([self.dataset[int(i)] for i in idxs])
 
     def _start(self):
         ctx = mp.get_context("spawn")
@@ -106,7 +126,7 @@ class PrefetchLoader:
         for w in range(self.num_workers):
             p = ctx.Process(
                 target=_worker,
-                args=(self.dataset, self._task_q, self._result_q, self.seed + 7919 * w),
+                args=(self.dataset, self._task_q, self._result_q, self.seed + 7919 * w + 104729 * self.rank),
                 daemon=True,
             )
             p.start()
@@ -124,21 +144,24 @@ class PrefetchLoader:
                 p.terminate()
         self._procs = []
 
-    def _ordered_iter(self) -> Iterator:
-        """One epoch, worker-decoded, yielded strictly in task order."""
+    def _worker_iter(self) -> Iterator:
+        """Worker-decoded batches, yielded strictly in task order, at most
+        ``num_workers + prefetch`` tasks ahead of the consumer (a bounded
+        reorder buffer)."""
         self._start()
-        pending = self._epoch_batches(np.random.RandomState(self.seed), 0)
+        tasks = self._tasks()
         buf = {}
-        next_yield = 0
-        submitted = 0
+        submitted = next_yield = 0
         try:
-            while next_yield < len(pending):
-                while (
-                    submitted < len(pending)
-                    and submitted - next_yield < self.num_workers + self.prefetch
-                ):
-                    self._task_q.put((0, submitted, pending[submitted]))
+            while True:
+                while submitted - next_yield < self.num_workers + self.prefetch:
+                    task = next(tasks, None)
+                    if task is None:
+                        break
+                    self._task_q.put((task[0], submitted, task[1]))
                     submitted += 1
+                if next_yield == submitted:
+                    return
                 while next_yield not in buf:
                     tid, batch, err = self._result_q.get()
                     if err is not None:
@@ -159,40 +182,12 @@ class PrefetchLoader:
             # epoch/shuffle mix) into this iteration — restart the pool with
             # fresh queues instead
             self.close()
-        if not self.shuffle:
-            yield from self._ordered_iter()
-            return
-        self._start()
-        rng = np.random.RandomState(self.seed)
-        epoch = 0
-        task_id = 0
-        in_flight = 0
-        pending = self._epoch_batches(rng, epoch)
-        pos = 0
-        if not pending:
+        if self.shuffle and len(self) == 0:
             raise ValueError(
                 f"no batches: dataset of {len(self.dataset)} items with "
                 f"batch_size={self.batch_size} and drop_last={self.drop_last}"
             )
-        try:
-            while True:
-                # keep the task queue topped up across epoch boundaries
-                while in_flight < self.num_workers + self.prefetch:
-                    if pos >= len(pending):
-                        epoch += 1
-                        pending = self._epoch_batches(rng, epoch)
-                        pos = 0
-                    self._task_q.put((epoch, task_id, pending[pos]))
-                    task_id += 1
-                    pos += 1
-                    in_flight += 1
-                tid, batch, err = self._result_q.get()
-                in_flight -= 1
-                if err is not None:
-                    raise RuntimeError(f"loader worker failed on task {tid}: {err}")
-                yield batch
-        finally:
-            self.close()
+        yield from self._worker_iter()
 
 
 def make_loader(
@@ -202,10 +197,13 @@ def make_loader(
     seed: int = 0,
     num_workers: Optional[int] = 8,
     prefetch: int = 4,
+    rank: int = 0,
+    world: int = 1,
 ) -> Iterator:
-    """An iterator over ``PrefetchLoader``'s batches."""
+    """An iterator over ``PrefetchLoader``'s batches (this ``rank``'s rows
+    of each global batch of ``batch_size``)."""
     loader = PrefetchLoader(
         dataset, batch_size, shuffle=shuffle, seed=seed,
-        num_workers=num_workers or 0, prefetch=prefetch,
+        num_workers=num_workers or 0, prefetch=prefetch, rank=rank, world=world,
     )
     return iter(loader)

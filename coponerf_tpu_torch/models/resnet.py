@@ -16,6 +16,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from coponerf_tpu_torch.parallel.mesh import all_reduce_sum, group_size
+
 _MOMENTUM = 0.9     # flax nn.BatchNorm(momentum=0.9): weight of the old running value
 
 
@@ -27,7 +29,14 @@ class BatchNorm(nn.Module):
     variance (flax's E[x^2] - E[x]^2, clipped at 0) and moves the running
     statistics as ``0.9 * old + 0.1 * batch``, the biased variance included
     (``F.batch_norm(training=True)`` would store the unbiased one and drift
-    from the JAX package after the first step)."""
+    from the JAX package after the first step).
+
+    ``stats_group`` (set by ``parallel.mesh.attach_batch_norm``; None: the
+    local batch) is the process group whose ranks' batches make up the
+    global batch.  Each holds an equal share of it, so the global mean and
+    mean square are the averages of the ranks' (one differentiable
+    all-reduce a layer); the variance, the normalisation and the running
+    update then follow from them as above, equal on every rank."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -36,14 +45,18 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
         self.eps = eps
+        self.stats_group = None
 
     def forward(self, x, train: bool = False):
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 False, 0.0, self.eps)
         dims = (0, 2, 3)
-        mean = x.mean(dim=dims)
-        var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+        mean, mean_sq = x.mean(dim=dims), (x * x).mean(dim=dims)
+        if self.stats_group is not None:
+            both = all_reduce_sum(torch.stack([mean, mean_sq]), self.stats_group) / group_size(self.stats_group)
+            mean, mean_sq = both[0], both[1]
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
         with torch.no_grad():
             m = _MOMENTUM
             self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)

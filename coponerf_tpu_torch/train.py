@@ -2,7 +2,7 @@
 
     python -m coponerf_tpu_torch.train --experiment_name X --data_root ... --pose_root ... \
         [--dataset realestate10k|acid|synthetic] [--val_root ...] [--fast --compute_dtype bfloat16] \
-        [--pose --cycle --ssim] [--device cpu] ...
+        [--pose --cycle --ssim] [--device cpu] [--gpus N] ...
 
 The flags are those of the JAX package's ``train.py`` that this port
 supports (``--l2_coeff``, ``--depth`` and ``--num_epochs`` are accepted and
@@ -18,11 +18,23 @@ scored and summarised every ``--steps_til_summary`` steps
 or the reference's weights (``.pth``, weights only).  Checkpoints,
 ``metrics.jsonl`` and the summaries go under
 ``<logging_root>/<experiment_name>/``.
+
+``--gpus N`` trains data-parallel on N ranks (``parallel/``): one process
+and one card a rank on NCCL, or with ``--device cpu`` N CPU processes on
+gloo.  ``--batch_size`` is the global batch and must divide by N; each
+rank trains on its rows of every global batch (synthetic: every rank makes
+the same global batch from the seed and keeps its rows; a dataset: the
+loader reads only the rank's rows), and the step is the one-rank step on
+the global batch.  Rank 0 alone logs, checkpoints and validates.  More
+ranks than visible cards, or a batch that does not divide, exit 2.  Under
+``torchrun`` (its ``RANK``/``WORLD_SIZE``/``MASTER_ADDR`` environment) the
+process joins that group instead of spawning.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 from coponerf_tpu_torch.utils.cli import parse_with_config
@@ -38,7 +50,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dataset", type=str, default="realestate10k", choices=["realestate10k", "acid", "synthetic"])
     p.add_argument("--experiment_name", type=str, required=True)
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
-    p.add_argument("--batch_size", type=int, default=12)
+    p.add_argument("--batch_size", type=int, default=12, help="the global batch, over all ranks")
+    p.add_argument("--gpus", type=int, default=1,
+                   help="data-parallel ranks: one CUDA device each (NCCL), or CPU processes with --device cpu (gloo)")
     p.add_argument("--views", type=int, default=2)
     p.add_argument("--n_skip", type=int, default=50, help="accepted as the JAX entry accepts it")
     p.add_argument("--image_size", type=int, default=256, help="synthetic scenes' size (a dataset's is 256)")
@@ -103,18 +117,24 @@ def _dataset_class(name: str):
     return realestate.RealEstate10k
 
 
-def make_dataset(opt):
+def make_dataset(opt, mesh=None):
     """(an endless generator of numpy batches, steps_per_epoch or 0 when
     unbounded, the image size: ``--image_size`` for synthetic scenes, the
-    readers' for a dataset)."""
+    readers' for a dataset).  Under ``mesh`` the batches are this rank's
+    rows of the global batches."""
     if opt.dataset == "synthetic":
-        return (synthetic_batches(opt.batch_size, opt.image_size, opt.query_sparsity, opt.synthetic_pool), 0,
-                opt.image_size)
+        batches = synthetic_batches(opt.batch_size, opt.image_size, opt.query_sparsity, opt.synthetic_pool)
+        if mesh is not None:
+            from coponerf_tpu_torch.parallel.mesh import shard_batch
+
+            batches = (shard_batch(mesh, b) for b in batches)
+        return batches, 0, opt.image_size
     from coponerf_tpu_torch.data.loader import make_loader
 
     ds = _dataset_class(opt.dataset)(opt.data_root, opt.pose_root, num_ctxt_views=opt.views, num_query_views=1,
                                      query_sparsity=opt.query_sparsity, augment=True)
-    it = make_loader(ds, opt.batch_size, shuffle=True, num_workers=opt.num_workers)
+    rank, world = (0, 1) if mesh is None else (mesh.coord("data"), mesh.size("data"))
+    it = make_loader(ds, opt.batch_size, shuffle=True, num_workers=opt.num_workers, rank=rank, world=world)
     return (b for b, _ in it), max(1, len(ds) // opt.batch_size), ds.cfg.image_size
 
 
@@ -137,19 +157,10 @@ def make_validation(opt, cfg, image_size: int):
     return make_val_fn(cfg, val_batches, image_size=image_size, max_batches=opt.val_batches)
 
 
-def main(argv=None) -> int:
-    opt = parse_with_config(build_parser(), argv)
-    import torch
-
-    if opt.device == "cuda" and not torch.cuda.is_available():
-        print("train: no CUDA device; pass --device cpu to train on the CPU", file=sys.stderr)
-        return 2
+def build_config(opt, image_size: int, steps_per_epoch: int):
     from coponerf_tpu_torch.config import Config, LossConfig, ModelConfig, TrainConfig
-    from coponerf_tpu_torch.training import checkpoint as ckpt_lib
-    from coponerf_tpu_torch.training import trainer
 
-    batches, steps_per_epoch, image_size = make_dataset(opt)
-    cfg = Config(
+    return Config(
         # the cyclic-consistency masks at the image's resolution (256 by default)
         model=ModelConfig(n_view=opt.views, compute_dtype=opt.compute_dtype, fast_sampling=opt.fast,
                           remat_ufc=not opt.no_remat, mask_upsample=image_size),
@@ -160,19 +171,82 @@ def main(argv=None) -> int:
         logging_root=opt.logging_root,
         experiment_name=opt.experiment_name,
     )
-    val_fn = make_validation(opt, cfg, image_size)
-    device = torch.device(opt.device)
-    state = trainer.create_train_state(cfg, image_size, device)
-    if opt.checkpoint_path and opt.checkpoint_path.endswith(".pth"):
-        ckpt_lib.load_weights(state.model, opt.checkpoint_path, image_size)
-        print(f"Loaded the reference weights {opt.checkpoint_path}")
-    elif opt.checkpoint_path:
-        ckpt_lib.restore_into(state, opt.checkpoint_path)
-        print(f"Loaded {opt.checkpoint_path} at step {state.step}")
+
+
+def run(opt, cfg, device, batches, image_size: int, mesh=None) -> int:
+    """Train on this process's device over ``batches``, as rank
+    ``mesh.rank`` of ``mesh`` or alone."""
+    from coponerf_tpu_torch.training import checkpoint as ckpt_lib
+    from coponerf_tpu_torch.training import trainer
+
+    lead = mesh is None or mesh.rank == 0
     try:
-        trainer.train(cfg, batches, num_steps=opt.max_steps, state=state, device=device, val_fn=val_fn)
+        val_fn = make_validation(opt, cfg, image_size) if lead else None
+        state = trainer.create_train_state(cfg, image_size, device)
+        if opt.checkpoint_path and opt.checkpoint_path.endswith(".pth"):
+            ckpt_lib.load_weights(state.model, opt.checkpoint_path, image_size)
+            if lead:
+                print(f"Loaded the reference weights {opt.checkpoint_path}")
+        elif opt.checkpoint_path:
+            ckpt_lib.restore_into(state, opt.checkpoint_path)
+            if lead:
+                print(f"Loaded {opt.checkpoint_path} at step {state.step}")
+        trainer.train(cfg, batches, num_steps=opt.max_steps, state=state, device=device, val_fn=val_fn, mesh=mesh)
     finally:
         batches.close()     # stops the loader's worker processes
+    return 0
+
+
+def run_rank(rank: int, world_size: int, opt, cfg) -> int:
+    """One rank of a data-parallel run, in its own process, its group joined."""
+    import torch
+
+    from coponerf_tpu_torch.parallel.mesh import make_mesh
+
+    device = torch.device("cuda", torch.cuda.current_device()) if opt.device == "cuda" else torch.device("cpu")
+    mesh = make_mesh(cfg.train.mesh_shape, cfg.train.mesh_axes)
+    batches, _, image_size = make_dataset(opt, mesh)
+    return run(opt, cfg, device, batches, image_size, mesh)
+
+
+def main(argv=None) -> int:
+    opt = parse_with_config(build_parser(), argv)
+    import torch
+
+    from coponerf_tpu_torch.parallel import mesh as mesh_lib
+
+    if opt.device == "cuda" and not torch.cuda.is_available():
+        print("train: no CUDA device; pass --device cpu to train on the CPU", file=sys.stderr)
+        return 2
+    backend = "nccl" if opt.device == "cuda" else "gloo"
+    world = int(os.environ["WORLD_SIZE"]) if mesh_lib.in_torchrun() else opt.gpus
+    if world < 1 or opt.batch_size % world:
+        print(f"train: --batch_size {opt.batch_size} (the global batch) does not split over {world} ranks",
+              file=sys.stderr)
+        return 2
+    if opt.device == "cuda" and opt.gpus > torch.cuda.device_count():
+        print(f"train: --gpus {opt.gpus} but {torch.cuda.device_count()} CUDA device(s) visible", file=sys.stderr)
+        return 2
+    batches, steps_per_epoch, image_size = make_dataset(opt)
+    cfg = build_config(opt, image_size, steps_per_epoch)
+    if opt.gpus == 1 and not mesh_lib.in_torchrun():
+        return run(opt, cfg, torch.device(opt.device), batches, image_size)
+    batches.close()         # each rank makes its own
+    if mesh_lib.in_torchrun():
+        rank, world = mesh_lib.init_from_env(backend)
+        try:
+            return run_rank(rank, world, opt, cfg)
+        finally:
+            torch.distributed.destroy_process_group()
+    import tempfile
+
+    from coponerf_tpu_torch.parallel.launch import run_ranks
+
+    with tempfile.TemporaryDirectory() as tmp:
+        devices = [f"cuda:{r}" for r in range(opt.gpus)] if opt.device == "cuda" else None
+        threads = None if opt.device == "cuda" else max(1, (os.cpu_count() or 1) // opt.gpus)
+        run_ranks(run_rank, opt.gpus, backend, f"file://{tmp}/rendezvous", args=(opt, cfg), devices=devices,
+                  threads=threads, deadline_s=None)
     return 0
 
 

@@ -13,7 +13,14 @@ Counterpart of ``coponerf_tpu/training/trainer.py:35-275``:
     JAX step and the reference;
   - checkpoints at the JAX loop's cadences and a JSONL metric log.
 
-Single device; multi-GPU training is not ported yet.
+Under a mesh (``parallel/mesh.py``) each rank computes on its share of
+the global batch, with the BatchNorm statistics and the losses' mask sums
+of the global batch; after ``backward`` the gradients are averaged over
+every rank (one flat all-reduce), so the norm, the finite check, the clip
+and Adam see the global gradient and every rank takes the same branch and
+the same update: the JAX package's mesh step, which is its single-device
+step on the global batch.  Only rank 0 writes the log, the checkpoints and
+the validation summaries.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import torch
 
 from coponerf_tpu_torch.config import Config
 from coponerf_tpu_torch.models import CoPoNeRF, batch_to_torch
+from coponerf_tpu_torch.parallel.mesh import Mesh, attach_batch_norm, average_gradients, average_over_world, replicate
 from coponerf_tpu_torch.training import checkpoint as ckpt_lib
 from coponerf_tpu_torch.training.losses import lf_loss
 from coponerf_tpu_torch.utils.init import init_weights
@@ -69,17 +77,25 @@ def attention_entropy(at_wt: torch.Tensor) -> torch.Tensor:
     return torch.nan_to_num(ent, nan=0.0).mean()
 
 
-def train_step(state: TrainState, batch: Dict[str, Any], cfg: Config) -> Dict[str, torch.Tensor]:
+def train_step(state: TrainState, batch: Dict[str, Any], cfg: Config,
+               mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
     """One step on a batch of tensors on the model's device.  Returns the
     metrics as detached 0-d tensors: each loss, ``total_train_loss``,
-    ``total_at_entropy`` and ``grad_norm`` (before clipping)."""
+    ``total_at_entropy`` and ``grad_norm`` (before clipping).  Under
+    ``mesh`` the batch is this rank's share (``parallel.mesh.shard_batch``)
+    of the global batch, every rank of the mesh takes the step together,
+    and the metrics are the global batch's."""
     model, opt = state.model, state.optimizer
+    if mesh is not None:
+        attach_batch_norm(model, mesh)
     out = model(batch, val=False, train=True)
-    losses, _ = lf_loss(cfg.loss, batch, out, batch["query"])
+    losses, _ = lf_loss(cfg.loss, batch, out, batch["query"], mesh=mesh)
     total = sum(losses.values())
     opt.zero_grad(set_to_none=True)
     total.backward()
     grads = [p.grad for p in model.parameters() if p.grad is not None]
+    if mesh is not None:
+        average_gradients(mesh, grads)
     norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
     finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
     if finite:
@@ -100,6 +116,10 @@ def train_step(state: TrainState, batch: Dict[str, Any], cfg: Config) -> Dict[st
     metrics = {k: v.detach() for k, v in losses.items()}
     metrics["total_train_loss"] = total.detach()
     metrics["total_at_entropy"] = attention_entropy(out["at_wt"].detach())
+    if mesh is not None:
+        # equal shares: the global values are the ranks' averages
+        averaged = average_over_world(mesh, torch.stack([v.float() for v in metrics.values()]))
+        metrics = dict(zip(metrics, averaged.unbind()))
     metrics["grad_norm"] = norm.detach()
     return metrics
 
@@ -149,16 +169,26 @@ class MetricLogger:
 
 
 def train(cfg: Config, batches: Iterable, num_steps: int, state: TrainState, device,
-          log_every: int = 10, val_fn: Optional[Callable] = None) -> TrainState:
+          log_every: int = 10, val_fn: Optional[Callable] = None, mesh: Optional[Mesh] = None) -> TrainState:
     """Run ``num_steps`` steps over ``batches`` (numpy batches in the
     ``data.synthetic.make_batch`` schema, cycled if exhausted), logging to
     ``<logging_root>/<experiment_name>/summaries`` and checkpointing to
     ``.../checkpoints`` at the JAX loop's cadences; returns the state.
     ``val_fn(state, step, logger)`` (``training/validation.py``) runs every
     ``steps_til_summary`` steps, after the rolling ``model_current``
-    checkpoint."""
+    checkpoint.
+
+    Under ``mesh`` every rank of the mesh calls ``train`` with its own
+    ``batches``: its shares of the same global batches
+    (``parallel.mesh.shard_batch``, or the loader's ``rank``/``world``).
+    The model starts from rank 0's weights; rank 0 alone logs, checkpoints
+    and validates, the others skip those and meet it at the next step's
+    collectives."""
+    lead = mesh is None or mesh.rank == 0
+    if mesh is not None:
+        replicate(mesh, state.model)
     logdir = os.path.join(cfg.logging_root, cfg.experiment_name)
-    logger = MetricLogger(os.path.join(logdir, "summaries"))
+    logger = MetricLogger(os.path.join(logdir, "summaries")) if lead else None
     ckpt_dir = os.path.join(logdir, "checkpoints")
     steps_per_epoch = cfg.train.steps_per_epoch or cfg.train.steps_til_summary
     it = iter(batches)
@@ -170,7 +200,9 @@ def train(cfg: Config, batches: Iterable, num_steps: int, state: TrainState, dev
             except StopIteration:
                 it = iter(batches)
                 batch_np = next(it)
-            metrics = train_step(state, batch_to_torch(batch_np, device), cfg)
+            metrics = train_step(state, batch_to_torch(batch_np, device), cfg, mesh=mesh)
+            if not lead:
+                continue
             if step % log_every == 0:
                 metrics["steps_per_sec"] = (step + 1) / (time.time() - t0)
                 logger.log(step, metrics)
@@ -182,7 +214,9 @@ def train(cfg: Config, batches: Iterable, num_steps: int, state: TrainState, dev
                 ckpt_lib.save(ckpt_dir, state, step, name="model_current")
                 if val_fn is not None:
                     val_fn(state, step, logger)
-        ckpt_lib.save(ckpt_dir, state, num_steps, name="model_final")
+        if lead:
+            ckpt_lib.save(ckpt_dir, state, num_steps, name="model_final")
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
     return state

@@ -3,9 +3,11 @@
 ``fused_argmax=True``, the evaluation layer (harness, metrics, LPIPS,
 overlap, scene readers, the native scene cache, loader, the ``test``
 entry), a camera path, in-training validation with its summaries, the
-``.pth`` import, the ``train`` and ``render_path`` entries and the sampler
-bench load no module of ``jax``, ``flax`` or the JAX package
-``coponerf_tpu``.  On CPU
+``.pth`` import, the ``train`` and ``render_path`` entries, the sampler
+bench, the data-parallel layer (``parallel/``: a one-rank gloo mesh's train
+step and ray-sharded render) and the multi-rank tests' rank functions
+(``tests/torch_dist_helpers.py``) load no module of ``jax``, ``flax`` or
+the JAX package ``coponerf_tpu``.  On CPU
 tensors its kernel wrappers take the plain versions without counting a
 launch."""
 
@@ -98,6 +100,22 @@ fcfg = dataclasses.replace(tcfg, model=dataclasses.replace(cfg, fused_argmax=Tru
 fstate = trainer.create_train_state(fcfg, 32, "cpu", model=init_weights(CoPoNeRF(fcfg.model, image_size=32), seed=0))
 metrics = trainer.train_step(fstate, batch_to_torch(make_batch(batch_size=2, image_size=32, n_rays=8, seed=1)[0], "cpu"), fcfg)
 assert fstate.updates == 1 and all(torch.isfinite(v) for v in metrics.values())
+import coponerf_tpu_torch.parallel
+from coponerf_tpu_torch.parallel import launch, mesh as pmesh, render as prender
+sys.path.insert(0, "tests")
+import torch_dist_helpers
+with tempfile.TemporaryDirectory() as d:
+    pmesh.init_distributed("gloo", 0, 1, f"file://{d}/rendezvous")
+    try:
+        mesh = pmesh.make_mesh((1, -1), ("data", "rays"))
+        metrics = trainer.train_step(state, batch_to_torch(make_batch(batch_size=2, image_size=32, n_rays=8, seed=1)[0], "cpu"), tcfg, mesh=mesh)
+        assert state.updates == 2 and all(torch.isfinite(v) for v in metrics.values())
+        model.eval()
+        with torch.no_grad():
+            out = prender.render_ray_sharded(model, tb, model.encode(tb), mesh, chunk=4)
+        assert out["rgb"].shape == (1, 1, 8, 3)
+    finally:
+        torch.distributed.destroy_process_group()
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
 print("JAX_MODULES", bad)
 ref = sorted(m for m in sys.modules if m.split(".")[0] == "coponerf_tpu")

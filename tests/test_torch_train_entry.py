@@ -9,6 +9,7 @@ finite losses and ``val_*`` terms.  What ``make_val_fn`` computes is held
 to the JAX package's in ``tests/test_torch_validation.py``.
 """
 
+import dataclasses
 import json
 import os
 
@@ -21,6 +22,7 @@ from coponerf_tpu_torch import train as train_entry
 from coponerf_tpu_torch.config import Config, ModelConfig, TrainConfig
 from coponerf_tpu_torch.data.scene_dataset import SceneDataset, SceneDatasetConfig
 from coponerf_tpu_torch.data.synthetic import make_batch
+from coponerf_tpu_torch.training import checkpoint as ckpt_lib
 from coponerf_tpu_torch.training import trainer
 
 torch.set_num_threads(2)
@@ -150,3 +152,72 @@ def test_metric_logger_writes_pngs_without_tensorboard(tmp_path, monkeypatch):
     tb = summary.image("t", img, dataformats="HWC").value[0].image.encoded_image_string
     np.testing.assert_array_equal(got, np.asarray(Image.open(io.BytesIO(tb))))
     assert [json.loads(line) for line in open(tmp_path / "metrics.jsonl")] == [{"step": 4, "a": 1.5}]
+
+
+def _synthetic_argv(tmp_path, name, gpus, batch_size=2):
+    return ["--device", "cpu", "--dataset", "synthetic", "--image_size", str(IMG), "--experiment_name", name,
+            "--logging_root", str(tmp_path), "--batch_size", str(batch_size), "--query_sparsity", "8",
+            "--max_steps", "2", "--steps_til_summary", "100", "--cycle", "--ssim", "--gpus", str(gpus)]
+
+
+def test_train_entry_on_two_cpu_ranks_is_the_one_rank_run(tmp_path, monkeypatch):
+    """``--gpus 2 --device cpu``: two gloo ranks each train on their row of
+    every synthetic global batch of 2; rank 0 alone writes the log (one row
+    for step 0) and the checkpoints, and the final weights are those of a
+    ``--gpus 1`` run on the same global batches: the mean |difference| of
+    the parameters is held below 1 % of lr (0.10 %; f32 sums in another
+    order, which can flip the sign of Adam's first update where a gradient
+    entry is near 0), the BatchNorm statistics to 1e-4 of their largest
+    value (3.3e-5).  The two ranks' checkpoint restores into a one-rank
+    state, and two ranks resume from the one-rank run's."""
+    build = train_entry.build_config
+
+    def narrow(*args):          # the ranks are handed the parent's configuration
+        cfg = build(*args)
+        return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, npoints=4, ufc_layer_nums=(1, 1, 1)))
+
+    monkeypatch.setattr(train_entry, "build_config", narrow)
+    final = {}
+    for gpus in (2, 1):
+        name = f"gpus{gpus}"
+        assert train_entry.main(_synthetic_argv(tmp_path, name, gpus)) == 0
+        logged = [json.loads(line) for line in open(tmp_path / name / "summaries" / "metrics.jsonl")]
+        assert [row["step"] for row in logged] == [0] and np.isfinite(logged[0]["total_train_loss"])
+        assert sorted(os.listdir(tmp_path / name / "checkpoints")) == ["model_final.pt"]
+        final[gpus] = torch.load(tmp_path / name / "checkpoints" / "model_final.pt", weights_only=True)
+    assert final[2]["step"] == final[1]["step"] == 2 and final[2]["updates"] == final[1]["updates"] == 2
+    assert final[2]["model"].keys() == final[1]["model"].keys()
+    assert final[2]["optimizer"]["state"].keys() == final[1]["optimizer"]["state"].keys()
+    diff, count = 0.0, 0
+    for k, v in final[1]["model"].items():
+        got = final[2]["model"][k]
+        if "running_" in k:
+            assert float((got - v).abs().max()) <= 1e-4 * float(v.abs().max()), k
+        elif v.is_floating_point():
+            diff += float((got - v).abs().sum())
+            count += v.numel()
+    lr = TrainConfig().lr
+    assert diff / count <= 0.01 * lr, diff / count / lr
+    # the checkpoints cross: two ranks' into one state, one rank's into two ranks
+    state = trainer.create_train_state(narrow(train_entry.build_parser().parse_args(_synthetic_argv(tmp_path, "x", 1)),
+                                              IMG, 0), IMG, "cpu")
+    ckpt_lib.restore_into(state, str(tmp_path / "gpus2" / "checkpoints" / "model_final.pt"))
+    assert state.step == state.updates == 2
+    argv = _synthetic_argv(tmp_path, "resumed", 2) + ["--checkpoint_path",
+                                                      str(tmp_path / "gpus1" / "checkpoints" / "model_final.pt")]
+    argv[argv.index("--max_steps") + 1] = "1"
+    assert train_entry.main(argv) == 0
+    resumed = torch.load(tmp_path / "resumed" / "checkpoints" / "model_final.pt", weights_only=True)
+    assert resumed["step"] == resumed["updates"] == 3
+
+
+def test_train_entry_refuses_more_ranks_than_cards_or_an_uneven_batch(tmp_path, monkeypatch):
+    """``--gpus`` above the visible card count, or a global batch that does
+    not divide by it, exits 2 before any rank starts."""
+    assert train_entry.main(_synthetic_argv(tmp_path, "uneven", 2, batch_size=3)) == 2
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    argv = _synthetic_argv(tmp_path, "cards", 2)
+    argv[argv.index("--device") + 1] = "cuda"
+    assert train_entry.main(argv) == 2
+    assert not os.path.exists(tmp_path / "uneven") and not os.path.exists(tmp_path / "cards")
