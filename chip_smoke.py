@@ -94,7 +94,14 @@ result line:
      (training/validation.py make_val_fn, its default 512-ray chunks) on
      the unfused state over one full 256^2 pair: every val_* term finite,
      ms, the panels captured by a recording logger, launch counts (K8a 2,
-     K2 2, K3 4 a chunk);
+     K2 2, K3 4 a chunk); then the JAX package's checkpoint
+     (utils/jax_checkpoint.py): the unfused state written as a JAX .npz and
+     read back into a fresh state, and through the port's .pt, each bit for
+     bit the source (weights, BatchNorm statistics, Adam's moments and
+     steps, counters, learning rate), write and read seconds and the file
+     sizes, one step of each restored state on the same batch (losses bit
+     for bit, grad norm 1e-2; K1 6, K2 2, K4 6) and a 32768-ray cf[16, 4]
+     chunk of the npz's weights bit for bit the source's (K8a 4, K2 4, K3 8);
   7. one train step on the card and on the CPU from the same weights and
      batch (64^2, batch 1), unfused and fused, losses and grad norm
      compared at the fast config's bound;
@@ -1168,6 +1175,123 @@ def phase_validation(state, cfg, card: str, count, launches) -> None:
                  "panels)")
 
 
+def phase_checkpoint(state, cfg, batch, card: str, count, launches) -> None:
+    """The JAX package's checkpoint (``.npz``, ``utils/jax_checkpoint.py``)
+    at full width: phase 6's trained state written as one, read back into
+    a fresh state on the card, and written and read through the port's
+    ``.pt`` as well; each restored state bit for bit the source (weights,
+    BatchNorm statistics, Adam's moments and steps, counters, learning
+    rate); one step of each on the same batch (losses bit for bit, grad
+    norm 1e-2: K4's atomics; K1 6, K2 2, K4 6); one 32768-ray cf[16, 4]
+    chunk of the npz's weights loaded by ``load_weights``, bit for bit the
+    source weights' chunk (K8a 4, K2 4, K3 8).  The files go to a
+    temporary directory, deleted at the end."""
+    import tempfile
+
+    from coponerf_tpu_torch.config import ModelConfig
+    from coponerf_tpu_torch.data.synthetic import make_batch
+    from coponerf_tpu_torch.models import CoPoNeRF, batch_to_torch
+    from coponerf_tpu_torch.training import checkpoint as ckpt_lib
+    from coponerf_tpu_torch.training import trainer
+    from coponerf_tpu_torch.utils import jax_checkpoint
+
+    dev = next(state.model.parameters()).device
+
+    def fresh():
+        return trainer.create_train_state(cfg, IMAGE, dev, model=CoPoNeRF(cfg.model, image_size=IMAGE))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    t_phase = time.perf_counter()
+    icfg = ModelConfig(fast_sampling=True, compute_dtype="bfloat16", coarse_samples=16, fine_samples=4)
+    restored, secs, sizes = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for route, save, restore in (("npz", jax_checkpoint.save, ckpt_lib.restore_into),
+                                     ("pt", ckpt_lib.save, ckpt_lib.restore_into)):
+            path, secs[route + " write"] = timed(lambda: save(tmp, state, state.step))
+            sizes[route] = os.path.getsize(path)
+            target = fresh()
+            restored[route], secs[route + " read"] = timed(lambda: restore(target, path))
+            if route == "npz":
+                served, secs["npz weights"] = timed(lambda: ckpt_lib.load_weights(
+                    CoPoNeRF(icfg, image_size=IMAGE).eval().to(dev), path))
+            os.remove(path)
+    log(f"[checkpoint] {IMAGE}^2 fast train state after {state.updates} updates, "
+        f"{sum(p.numel() for p in state.model.parameters()) / 1e6:.1f} M parameters: JAX .npz "
+        f"{sizes['npz'] / 1e6:.1f} MB written in {secs['npz write'] * 1e3:.1f} ms, restored into a fresh state in "
+        f"{secs['npz read'] * 1e3:.1f} ms, its weights into a cf[16, 4] model in {secs['npz weights'] * 1e3:.1f} ms; "
+        f".pt {sizes['pt'] / 1e6:.1f} MB written in {secs['pt write'] * 1e3:.1f} ms, restored in "
+        f"{secs['pt read'] * 1e3:.1f} ms [{card}]")
+
+    src_sd = state.model.state_dict()
+    src_named = dict(state.model.named_parameters())
+    for route, r in restored.items():
+        bad = [k for k, v in r.model.state_dict().items() if not torch.equal(v, src_sd[k])]
+        named = dict(r.model.named_parameters())
+        for k, p in src_named.items():
+            a, b = state.optimizer.state.get(p, {}), r.optimizer.state.get(named[k], {})
+            if a.keys() != b.keys() or not all(torch.equal(a[x].cpu(), b[x].cpu()) for x in a):
+                bad.append(f"Adam state of {k}")
+        counters = [(getattr(r, c), getattr(state, c)) for c in ("step", "updates", "notfinite_count",
+                                                                  "total_notfinite")]
+        lr = (trainer.learning_rate(cfg, r.updates), trainer.learning_rate(cfg, state.updates))
+        good = not bad and all(a == b for a, b in counters) and lr[0] == lr[1]
+        log(f"[checkpoint] {route} route restored bit for bit: {len(src_sd)} weights and buffers, Adam state of "
+            f"{len(src_named)} parameters, counters {[a for a, _ in counters]}, lr {lr[0]:.6g} "
+            f"{'ok' if good else 'FAIL ' + str(bad[:4])}")
+        if not good:
+            raise RuntimeError(f"the {route} route did not restore the state bit for bit")
+
+    per_step = dict.fromkeys(KERNELS, 0)
+    per_step.update(bilinear_sample=6, split_dense_relu=2, onehot_transpose_matmul=6)
+    stepped = {}
+    for route, r in restored.items():
+        path = f"ckpt_step_{route}"
+        stepped[route] = count(path, lambda: trainer.train_step(r, batch, cfg))
+        log(f"[checkpoint] one step from the {route} state: " + ", ".join(
+            f"{k} {float(v):.7g}" for k, v in stepped[route].items()) + f"; launches {launches[path]}")
+        if launches[path] != per_step:
+            raise RuntimeError(f"{path}: launches {launches[path]}, expected {per_step}")
+    a, b = stepped["npz"], stepped["pt"]
+    same = [k for k in a if k != "grad_norm" and torch.equal(a[k], b[k])]
+    gn = abs(float(a["grad_norm"]) - float(b["grad_norm"])) / float(b["grad_norm"])
+    good = len(same) == len(a) - 1 and gn < 1e-2
+    log(f"[checkpoint] the two restored states' steps: losses bit for bit {len(same)} of {len(a) - 1}, grad norm "
+        f"{gn:.3e} relative (bound 1e-2: K4's atomics) {'ok' if good else 'FAIL'}")
+    if not good:
+        raise RuntimeError("the npz- and pt-restored states' steps disagree")
+    del restored, stepped, a, b
+    torch.cuda.empty_cache()
+
+    source = CoPoNeRF(icfg, image_size=IMAGE).eval()
+    source.load_state_dict(src_sd)
+    source = source.to(dev)
+    request = batch_to_torch(make_batch(batch_size=1, image_size=IMAGE, n_rays=CHUNK, seed=11)[0], dev)
+
+    def chunk(m):
+        with torch.no_grad():
+            return m.render(request, m.encode(request), val=True)
+
+    got = count("ckpt_render", lambda: chunk(served))
+    want = chunk(source)
+    check_render(got, CHUNK, icfg.coarse_samples + icfg.fine_samples)
+    expected = dict.fromkeys(KERNELS, 0)
+    expected.update(multilevel_sample=4, split_dense_relu=4, weighted_sum_smaj=8)
+    good = all(torch.equal(got[k], want[k]) for k in ("rgb", "at_wt", "depth_ray"))
+    log(f"[checkpoint] a {CHUNK}-ray cf[16, 4] chunk of the npz's weights against the source weights': bit for bit "
+        f"{'ok' if good else 'FAIL'}; launches {launches['ckpt_render']} (expected {expected})")
+    if not good:
+        raise RuntimeError("the npz-loaded model renders otherwise than the source weights")
+    if launches["ckpt_render"] != expected:
+        raise RuntimeError("a kernel of the npz-loaded render was not launched as expected")
+    log(f"[checkpoint] the phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_lpips(model, dev, card: str, count, launches) -> None:
     """LPIPS-VGG on random weights (``make_random_weights``) on the card
     against the CPU, 1e-4 relative, its ms/image; then one pair through
@@ -1824,6 +1948,9 @@ def main() -> int:
     for path, r in runs.items():
         profile_step(lambda: trainer.train_step(r["state"], batches[0], r["cfg"]), card, path)
     phase_validation(runs["train"]["state"], runs["train"]["cfg"], card, count, launches)
+    del runs["train_fused"]
+    torch.cuda.empty_cache()
+    phase_checkpoint(runs["train"]["state"], runs["train"]["cfg"], batches[0], card, count, launches)
     del runs, batches
     torch.cuda.empty_cache()
 

@@ -50,7 +50,17 @@ Prints one JSON line with:
 - ``train_step``: the fast-config train step at batch 6 x 256^2 pairs
   (pose + cycle + SSIM), the host-clock ms of each timed step, and one
   step's device kernel time under ``torch.profiler``, in all and in the
-  sampler's kernels.
+  sampler's kernels; ``adam_state_leaves``, the parameters that hold Adam
+  state after the steps; ``leaves``, one backward's count of parameters
+  and values, those that no loss reaches (``gradless``, with their
+  names) and those it does (``reached``: the flat all-reduce's buffer
+  under a mesh);
+- ``dp_step``: the same step and batch over a one-rank NCCL mesh
+  (``train_step(..., mesh=...)``) and without one, from the same
+  weights, in turns, host-clock ms of each timed step; and the flat
+  gradient all-reduce (``parallel.mesh.average_gradients``) alone on
+  random gradients of the reached parameters and of all parameters,
+  CUDA events.
 
 Kernel times are CUDA events around 10 back-to-back calls, the median of 5
 such windows; the render and the evaluations are host-clock times up to
@@ -60,7 +70,8 @@ on one card (A, B, B, A) to compare them: it uses only entry points both
 have (the samplers, ``onehot_transpose_matmul``, ``round1_logits``,
 ``round2_logits``, ``split_dense_relu``, ``render_core``,
 ``soft_argmax_stats``, ``soft_argmax_bwd``, ``encode``, ``render``,
-``evaluate`` and ``train_step``).  ``--only`` runs some sections alone.
+``evaluate``, ``train_step`` and the mesh's ``init_distributed``,
+``make_mesh`` and ``average_gradients``).  ``--only`` runs some sections alone.
 """
 
 from __future__ import annotations
@@ -79,7 +90,8 @@ TRAIN_ROWS = 12
 TRAIN_RAYS = 192
 SAMPLER_KERNEL = "multilevel_sample_kernel"  # every xy sampling launch (K1, K8a, K8b)
 K5_KERNEL = "soft_argmax"                    # every K5 launch, forward and backward
-SECTIONS = ("samplers", "k4", "attn_embed", "split_dense", "render_core", "k5", "render_eval", "train_step")
+SECTIONS = ("samplers", "k4", "attn_embed", "split_dense", "render_core", "k5", "render_eval", "train_step",
+            "dp_step")
 
 
 def cuda_ms_in_turns(fns, reps: int = 5, inner: int = 10):
@@ -432,10 +444,83 @@ def time_train_step(dev, n_steps: int) -> dict:
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     sampler = [e for e in kernels if SAMPLER_KERNEL in e.key]
+    adam_state_leaves = len(state.optimizer.state)
     return {"step_ms": times[2:], "median_step_ms": statistics.median(times[2:]),
             "device_kernel_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
             "sampler_kernel_ms": sum(e.self_device_time_total for e in sampler) / 1e3,
-            "sampler_launches": sum(e.count for e in sampler)}
+            "sampler_launches": sum(e.count for e in sampler),
+            "adam_state_leaves": adam_state_leaves, "leaves": reached_leaves(state, batches[0], cfg)}
+
+
+def reached_leaves(state, batch, cfg) -> dict:
+    """One forward and backward of the train step: the parameters (count,
+    values) in all, those no loss reaches (``grad`` None) and the rest."""
+    from coponerf_tpu_torch.training.losses import lf_loss
+
+    model = state.model
+    out = model(batch, val=False, train=True)
+    losses, _ = lf_loss(cfg.loss, batch, out, batch["query"])
+    state.optimizer.zero_grad(set_to_none=True)
+    sum(losses.values()).backward()
+    named = list(model.named_parameters())
+    gradless = [(k, p) for k, p in named if p.grad is None]
+    state.optimizer.zero_grad(set_to_none=True)
+    size = lambda ps: sum(p.numel() for _, p in ps)
+    return {"all": [len(named), size(named)], "gradless": [len(gradless), size(gradless)],
+            "reached": [len(named) - len(gradless), size(named) - size(gradless)],
+            "gradless_names": [k for k, _ in gradless]}
+
+
+def time_dp_step(dev, n_steps: int) -> dict:
+    import tempfile
+
+    import torch.distributed as dist
+
+    from coponerf_tpu_torch.config import Config, LossConfig, ModelConfig, TrainConfig
+    from coponerf_tpu_torch.data.synthetic import make_batch
+    from coponerf_tpu_torch.models import CoPoNeRF, batch_to_torch
+    from coponerf_tpu_torch.parallel.mesh import average_gradients, init_distributed, make_mesh
+    from coponerf_tpu_torch.training import trainer
+    from coponerf_tpu_torch.utils.init import init_weights
+
+    cfg = Config(model=ModelConfig(fast_sampling=True, compute_dtype="bfloat16"),
+                 loss=LossConfig(pose=True, cycle=True, ssim=True), train=TrainConfig())
+    weights = init_weights(CoPoNeRF(cfg.model, image_size=IMAGE), seed=0).state_dict()
+    batch = batch_to_torch(make_batch(batch_size=6, image_size=IMAGE, n_rays=TRAIN_RAYS, seed=1)[0], dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed("nccl", 0, 1, f"file://{tmp}/rendezvous", device=dev)
+        try:
+            mesh = make_mesh()
+            states = {}
+            for path in ("plain", "dp"):
+                model = CoPoNeRF(cfg.model, image_size=IMAGE)
+                model.load_state_dict(weights)
+                states[path] = trainer.create_train_state(cfg, IMAGE, dev, model=model)
+            times = {p: [] for p in states}
+            for i in range(n_steps + 2):          # two warm-up steps
+                for path in (("plain", "dp") if i % 2 == 0 else ("dp", "plain")):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    trainer.train_step(states[path], batch, cfg, mesh=mesh if path == "dp" else None)
+                    torch.cuda.synchronize()
+                    times[path].append((time.perf_counter() - t0) * 1e3)
+            leaves = reached_leaves(states["plain"], batch, cfg)
+            gradless = set(leaves["gradless_names"])
+            named = list(states["dp"].model.named_parameters())
+            all_reduce = {}
+            for which, params in (("reached", [p for k, p in named if k not in gradless]),
+                                  ("all", [p for _, p in named])):
+                grads = [torch.randn_like(p) for p in params]
+                all_reduce[which] = {"MiB": sum(g.numel() * 4 for g in grads) / 2 ** 20,
+                                     "ms": cuda_ms_in_turns([lambda: average_gradients(mesh, grads)],
+                                                            reps=5, inner=3)[0]}
+                del grads
+            del states
+        finally:
+            dist.destroy_process_group()
+    return {"plain_step_ms": times["plain"][2:], "dp_step_ms": times["dp"][2:],
+            "median_plain_ms": statistics.median(times["plain"][2:]),
+            "median_dp_ms": statistics.median(times["dp"][2:]), "all_reduce": all_reduce}
 
 
 def main() -> int:
@@ -461,7 +546,8 @@ def main() -> int:
              ("render_core", lambda: result.update(time_render_core(dev))),
              ("k5", lambda: result.update(k5=time_k5(dev))),
              ("render_eval", lambda: result.update(time_render_and_eval(dev))),
-             ("train_step", lambda: result.update(train_step=time_train_step(dev, args.steps))))
+             ("train_step", lambda: result.update(train_step=time_train_step(dev, args.steps))),
+             ("dp_step", lambda: result.update(dp_step=time_dp_step(dev, args.steps))))
     for name, step in steps:
         if name in only:
             step()

@@ -70,6 +70,9 @@ class TrainConfig:
     # one -1 takes the ranks the others leave; axes "data" and "rays"
     mesh_shape: Tuple[int, ...] = (-1,)
     mesh_axes: Tuple[str, ...] = ("data",)
+    # raise at the first NaN of a step instead of skipping the step
+    # (training/trainer.py nan_checks); debugging only
+    debug_nans: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import itertools
 import os
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -38,6 +39,10 @@ import torch.distributed as dist
 # what a rank waits in a collective before it gives up: a rank that raised
 # leaves the others blocked there
 DEFAULT_TIMEOUT_S = 60.0
+# what the other ranks wait for rank 0's checkpoints and validation
+RANK0_TIMEOUT_S = 3600.0
+# the signals of rank 0 to the others, numbered alike on every rank
+_RANK0_SIGNALS = itertools.count()
 # the leaves cut along the rays axis (``__graft_entry__.py:134-138``)
 RAY_KEYS = (("query", "uv"), ("query", "rgb"))
 
@@ -218,6 +223,28 @@ def average_over_world(mesh: Mesh, values: torch.Tensor) -> torch.Tensor:
     out = values.detach().clone()
     dist.all_reduce(out)
     return out.div_(mesh.world_size)
+
+
+def _signal_key() -> str:
+    return f"coponerf_rank0_done/{next(_RANK0_SIGNALS)}"
+
+
+def rank0_done(mesh: Mesh) -> None:
+    """Rank 0: tell the other ranks, through the group's store, that its
+    own work (checkpoints, validation) is done; they wait in
+    ``wait_for_rank0``.  Every rank makes these calls in the same order."""
+    key = _signal_key()
+    if mesh.world_size > 1:
+        dist.distributed_c10d._get_default_store().set(key, "1")
+
+
+def wait_for_rank0(mesh: Mesh) -> None:
+    """The other ranks: wait up to ``RANK0_TIMEOUT_S`` for rank 0's matching
+    ``rank0_done`` on the group's store, in no collective, so that rank 0's
+    work may outlast the collectives' timeout; raises past it."""
+    key = _signal_key()
+    if mesh.world_size > 1:
+        dist.distributed_c10d._get_default_store().wait([key], datetime.timedelta(seconds=RANK0_TIMEOUT_S))
 
 
 def attach_batch_norm(module: torch.nn.Module, mesh: Optional[Mesh]) -> None:

@@ -1,7 +1,7 @@
 """Render a novel-view camera path from one unposed stereo pair: one encode,
 then one whole image a pose (``eval/trajectory.py``).
 
-    # a checkpoint (the port's .pt or the reference's .pth) on a real scene
+    # a checkpoint (the port's .pt, the JAX package's .npz or the reference's .pth) on a real scene
     python -m coponerf_tpu_torch.render_path --checkpoint model.pth \
         --data_root .../test --pose_root .../test.mat --scene_idx 0 --n_frames 30 --out DIR
 
@@ -31,7 +31,8 @@ from coponerf_tpu_torch.config import ModelConfig
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--checkpoint", type=str, default=None, help="the port's .pt or the reference's .pth")
+    p.add_argument("--checkpoint", type=str, default=None,
+                   help="the port's .pt, the JAX package's .npz or the reference's .pth")
     p.add_argument("--seed", type=int, default=None, help="random weights from this seed instead of a checkpoint")
     p.add_argument("--data_root", type=str, default=None)
     p.add_argument("--pose_root", type=str, default=None)

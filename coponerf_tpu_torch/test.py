@@ -1,6 +1,6 @@
 """Evaluation entry point of the port.
 
-    python -m coponerf_tpu_torch.test --checkpoint_path X.pt --data_root ... --pose_root ... \
+    python -m coponerf_tpu_torch.test --checkpoint_path X.pt|X.npz|X.pth --data_root ... --pose_root ... \
         [--overlap assets/overlap/realestate.npy] [--n_skip 50] [--fast] [--device cpu]
 
 The flags are those of the JAX package's ``test.py`` plus ``--device``: the
@@ -10,8 +10,9 @@ dual-hypothesis eval protocol (``eval/harness.py``) and prints PSNR, SSIM,
 LPIPS (with ``--lpips_weights``, an ``.npz`` of ``eval/lpips.py``'s layout)
 and the pose errors binned by overlap {small<0.5, 0.5<=medium<=0.75,
 large>0.75}.  The checkpoint is one written by the port
-(``training/checkpoint.py``, ``.pt``) or the reference's released weights
-(``.pth``, imported by ``utils/torch_import.py``).  Image panels and pose
+(``training/checkpoint.py``, ``.pt``), one of the JAX package (``.npz``,
+``utils/jax_checkpoint.py``) or the reference's released weights (``.pth``,
+imported by ``utils/torch_import.py``).  Image panels and pose
 scalars go to ``<logging_root>/<experiment_name>/summaries``
 (``metrics.jsonl``, and TensorBoard where it imports).
 """
@@ -39,7 +40,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--views", type=int, default=2)
     p.add_argument("--n_skip", type=int, default=50)
     p.add_argument("--checkpoint_path", default=None,
-                   help="a checkpoint written by the port (.pt) or the reference's weights (.pth)")
+                   help="a checkpoint of the port (.pt), of the JAX package (.npz) or the reference's weights "
+                        "(.pth)")
     p.add_argument("--max_batches", type=int, default=None)
     p.add_argument("--chunk", type=int, default=4096)
     p.add_argument("--lpips_weights", type=str, default=None)

@@ -14,10 +14,14 @@ decays once an epoch of ``len(dataset) // batch_size`` steps.  With
 ``--val_root``, ``--val_batches`` full validation images are rendered,
 scored and summarised every ``--steps_til_summary`` steps
 (``training/validation.py``).  Weights start from the seeded fill
-(``--seed``), a checkpoint of the port (``.pt``, optimizer state included)
-or the reference's weights (``.pth``, weights only).  Checkpoints,
+(``--seed``), a checkpoint of the port (``.pt``), one of the JAX package
+(``.npz``, ``utils/jax_checkpoint.py``: any of its layouts) or the
+reference's weights (``.pth``, weights only).  A ``.pt`` or ``.npz`` resumes
+the run whole: weights, BatchNorm statistics, Adam's moments and the
+counters, and with them the learning rate.  Checkpoints,
 ``metrics.jsonl`` and the summaries go under
-``<logging_root>/<experiment_name>/``.
+``<logging_root>/<experiment_name>/``.  ``--debug_nans`` raises at the
+first NaN of a step instead of skipping the step.
 
 ``--gpus N`` trains data-parallel on N ranks (``parallel/``): one process
 and one card a rank on NCCL, or with ``--device cpu`` N CPU processes on
@@ -25,7 +29,8 @@ gloo.  ``--batch_size`` is the global batch and must divide by N; each
 rank trains on its rows of every global batch (synthetic: every rank makes
 the same global batch from the seed and keeps its rows; a dataset: the
 loader reads only the rank's rows), and the step is the one-rank step on
-the global batch.  Rank 0 alone logs, checkpoints and validates.  More
+the global batch.  Every rank reads ``--checkpoint_path``.  Rank 0 alone
+logs, checkpoints and validates while the others wait for it.  More
 ranks than visible cards, or a batch that does not divide, exit 2.  Under
 ``torchrun`` (its ``RANK``/``WORLD_SIZE``/``MASTER_ADDR`` environment) the
 process joins that group instead of spawning.
@@ -72,7 +77,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps_til_summary", type=int, default=500)
     p.add_argument("--iters_til_ckpt", type=int, default=10000)
     p.add_argument("--checkpoint_path", default=None,
-                   help="a checkpoint written by the port (.pt) or the reference's weights (.pth)")
+                   help="resume from a checkpoint of the port (.pt) or of the JAX package (.npz), or start "
+                        "from the reference's weights (.pth)")
     p.add_argument("--compute_dtype", type=str, default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--synthetic_pool", type=int, default=0,
                    help="synthetic dataset: generate N batches once and cycle them")
@@ -82,6 +88,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_remat", action="store_true", default=False,
                    help="keep the UFC activations instead of recomputing them in the backward")
     p.add_argument("--seed", type=int, default=0, help="seed of the parameter fill")
+    p.add_argument("--debug_nans", action="store_true", default=False,
+                   help="raise at the first NaN of a step instead of skipping the step (slow: debugging only)")
     return p
 
 
@@ -167,7 +175,7 @@ def build_config(opt, image_size: int, steps_per_epoch: int):
         loss=LossConfig(pose=opt.pose, cycle=opt.cycle, ssim=opt.ssim),
         train=TrainConfig(lr=opt.lr, steps_til_summary=opt.steps_til_summary,
                           epochs_til_ckpt=opt.epochs_til_ckpt, iters_til_ckpt=opt.iters_til_ckpt,
-                          steps_per_epoch=steps_per_epoch, seed=opt.seed),
+                          steps_per_epoch=steps_per_epoch, seed=opt.seed, debug_nans=opt.debug_nans),
         logging_root=opt.logging_root,
         experiment_name=opt.experiment_name,
     )

@@ -11,7 +11,16 @@ Counterpart of ``coponerf_tpu/training/trainer.py:35-275``:
     schedule moves (optax ``apply_if_finite`` semantics).  The BatchNorm
     running statistics are updated by the forward all the same, as in the
     JAX step and the reference;
-  - checkpoints at the JAX loop's cadences and a JSONL metric log.
+  - every parameter takes Adam's step, as every leaf does in optax: one
+    that no loss reaches gets a zero gradient just before ``opt.step()``,
+    so its moments decay and a moment restored from a JAX checkpoint moves
+    it as it would there.  Those zeros stay out of the norm, the finite
+    check, the clip and the all-reduce, where they change nothing;
+  - checkpoints at the JAX loop's cadences and a JSONL metric log;
+  - with ``TrainConfig.debug_nans`` the step raises ``FloatingPointError``
+    at the first module whose output holds a NaN, and autograd's anomaly
+    mode at the first backward operation that makes one, instead of
+    skipping the step (the JAX package's ``jax_debug_nans``).
 
 Under a mesh (``parallel/mesh.py``) each rank computes on its share of
 the global batch, with the BatchNorm statistics and the losses' mask sums
@@ -20,11 +29,14 @@ every rank (one flat all-reduce), so the norm, the finite check, the clip
 and Adam see the global gradient and every rank takes the same branch and
 the same update: the JAX package's mesh step, which is its single-device
 step on the global batch.  Only rank 0 writes the log, the checkpoints and
-the validation summaries.
+the validation summaries; the other ranks wait for it on the group's store
+(``parallel.mesh.wait_for_rank0``), outside any collective, so a slow
+validation does not run into the collectives' timeout.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -36,7 +48,8 @@ import torch
 
 from coponerf_tpu_torch.config import Config
 from coponerf_tpu_torch.models import CoPoNeRF, batch_to_torch
-from coponerf_tpu_torch.parallel.mesh import Mesh, attach_batch_norm, average_gradients, average_over_world, replicate
+from coponerf_tpu_torch.parallel.mesh import (Mesh, attach_batch_norm, average_gradients, average_over_world,
+                                              rank0_done, replicate, wait_for_rank0)
 from coponerf_tpu_torch.training import checkpoint as ckpt_lib
 from coponerf_tpu_torch.training.losses import lf_loss
 from coponerf_tpu_torch.utils.init import init_weights
@@ -77,6 +90,38 @@ def attention_entropy(at_wt: torch.Tensor) -> torch.Tensor:
     return torch.nan_to_num(ent, nan=0.0).mean()
 
 
+def _tensors(out):
+    if torch.is_tensor(out):
+        yield out
+    elif isinstance(out, (tuple, list)):
+        for o in out:
+            yield from _tensors(o)
+    elif isinstance(out, dict):
+        for o in out.values():
+            yield from _tensors(o)
+
+
+@contextlib.contextmanager
+def nan_checks(model: torch.nn.Module):
+    """Raise ``FloatingPointError`` at the first module of ``model`` whose
+    output holds a NaN (a forward hook on every module, innermost first),
+    and through autograd's anomaly mode at the first backward operation
+    that makes one.  For debugging: each check waits for the device."""
+    def check(name, mod, args, out):
+        for t in _tensors(out):
+            if t.is_floating_point() and bool(torch.isnan(t).any()):
+                raise FloatingPointError(f"NaN in the output of {name or 'the model'} ({type(mod).__name__})")
+
+    hooks = [m.register_forward_hook(lambda mod, args, out, name=name: check(name, mod, args, out))
+             for name, m in model.named_modules()]
+    try:
+        with torch.autograd.set_detect_anomaly(True):
+            yield
+    finally:
+        for h in hooks:
+            h.remove()
+
+
 def train_step(state: TrainState, batch: Dict[str, Any], cfg: Config,
                mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
     """One step on a batch of tensors on the model's device.  Returns the
@@ -84,15 +129,17 @@ def train_step(state: TrainState, batch: Dict[str, Any], cfg: Config,
     ``total_at_entropy`` and ``grad_norm`` (before clipping).  Under
     ``mesh`` the batch is this rank's share (``parallel.mesh.shard_batch``)
     of the global batch, every rank of the mesh takes the step together,
-    and the metrics are the global batch's."""
+    and the metrics are the global batch's.  Under ``cfg.train.debug_nans``
+    a NaN in the forward or the backward raises (``nan_checks``)."""
     model, opt = state.model, state.optimizer
     if mesh is not None:
         attach_batch_norm(model, mesh)
-    out = model(batch, val=False, train=True)
-    losses, _ = lf_loss(cfg.loss, batch, out, batch["query"], mesh=mesh)
-    total = sum(losses.values())
-    opt.zero_grad(set_to_none=True)
-    total.backward()
+    with nan_checks(model) if cfg.train.debug_nans else contextlib.nullcontext():
+        out = model(batch, val=False, train=True)
+        losses, _ = lf_loss(cfg.loss, batch, out, batch["query"], mesh=mesh)
+        total = sum(losses.values())
+        opt.zero_grad(set_to_none=True)
+        total.backward()
     grads = [p.grad for p in model.parameters() if p.grad is not None]
     if mesh is not None:
         average_gradients(mesh, grads)
@@ -103,6 +150,9 @@ def train_step(state: TrainState, batch: Dict[str, Any], cfg: Config,
         if norm.item() >= max_norm:
             for g in grads:
                 g.div_(norm).mul_(max_norm)
+        for p in model.parameters():
+            if p.grad is None:      # no loss reaches it: optax's zero gradient
+                p.grad = torch.zeros_like(p)
         for group in opt.param_groups:
             group["lr"] = learning_rate(cfg, state.updates)
         opt.step()
@@ -182,13 +232,24 @@ def train(cfg: Config, batches: Iterable, num_steps: int, state: TrainState, dev
     ``batches``: its shares of the same global batches
     (``parallel.mesh.shard_batch``, or the loader's ``rank``/``world``).
     The model starts from rank 0's weights; rank 0 alone logs, checkpoints
-    and validates, the others skip those and meet it at the next step's
-    collectives."""
+    and validates, and the others wait for it on the group's store
+    (``parallel.mesh.wait_for_rank0``, up to an hour) after each
+    step where it does either, after its final checkpoint, and while it
+    opens its logger."""
     lead = mesh is None or mesh.rank == 0
+
+    def rank0_work_done() -> None:
+        """Rank 0 says its own work is done; the others wait for that."""
+        if mesh is not None and lead:
+            rank0_done(mesh)
+        elif mesh is not None:
+            wait_for_rank0(mesh)
+
+    logdir = os.path.join(cfg.logging_root, cfg.experiment_name)
+    logger = MetricLogger(os.path.join(logdir, "summaries")) if lead else None   # TensorBoard imports for seconds
+    rank0_work_done()
     if mesh is not None:
         replicate(mesh, state.model)
-    logdir = os.path.join(cfg.logging_root, cfg.experiment_name)
-    logger = MetricLogger(os.path.join(logdir, "summaries")) if lead else None
     ckpt_dir = os.path.join(logdir, "checkpoints")
     steps_per_epoch = cfg.train.steps_per_epoch or cfg.train.steps_til_summary
     it = iter(batches)
@@ -201,21 +262,27 @@ def train(cfg: Config, batches: Iterable, num_steps: int, state: TrainState, dev
                 it = iter(batches)
                 batch_np = next(it)
             metrics = train_step(state, batch_to_torch(batch_np, device), cfg, mesh=mesh)
-            if not lead:
-                continue
-            if step % log_every == 0:
-                metrics["steps_per_sec"] = (step + 1) / (time.time() - t0)
-                logger.log(step, metrics)
-            if cfg.train.iters_til_ckpt and step and step % cfg.train.iters_til_ckpt == 0:
-                ckpt_lib.save(ckpt_dir, state, step)
-            if cfg.train.epochs_til_ckpt and step and step % (steps_per_epoch * cfg.train.epochs_til_ckpt) == 0:
-                ckpt_lib.save(ckpt_dir, state, step, name=f"model_epoch_{step // steps_per_epoch:04d}")
-            if step and step % cfg.train.steps_til_summary == 0:
-                ckpt_lib.save(ckpt_dir, state, step, name="model_current")
-                if val_fn is not None:
-                    val_fn(state, step, logger)
+            iters = bool(cfg.train.iters_til_ckpt and step and step % cfg.train.iters_til_ckpt == 0)
+            epoch = bool(cfg.train.epochs_til_ckpt and step
+                         and step % (steps_per_epoch * cfg.train.epochs_til_ckpt) == 0)
+            summary = bool(step and step % cfg.train.steps_til_summary == 0)
+            if lead:
+                if step % log_every == 0:
+                    metrics["steps_per_sec"] = (step + 1) / (time.time() - t0)
+                    logger.log(step, metrics)
+                if iters:
+                    ckpt_lib.save(ckpt_dir, state, step)
+                if epoch:
+                    ckpt_lib.save(ckpt_dir, state, step, name=f"model_epoch_{step // steps_per_epoch:04d}")
+                if summary:
+                    ckpt_lib.save(ckpt_dir, state, step, name="model_current")
+                    if val_fn is not None:
+                        val_fn(state, step, logger)
+            if iters or epoch or summary:
+                rank0_work_done()
         if lead:
             ckpt_lib.save(ckpt_dir, state, num_steps, name="model_final")
+        rank0_work_done()
     finally:
         if logger is not None:
             logger.close()

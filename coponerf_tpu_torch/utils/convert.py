@@ -64,6 +64,15 @@ def convert(variables: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
+def to_flax(key: str, arr: np.ndarray) -> Tuple[Tuple[str, ...], np.ndarray]:
+    """Port key and array -> (flax path incl. collection, the array in the
+    flax leaf's layout, C-contiguous): the inverse of ``convert`` leaf by leaf."""
+    path, _ = flax_path(key, tuple(arr.shape))
+    if path[-1] == "kernel":
+        arr = arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
+    return path, np.ascontiguousarray(arr)
+
+
 def flax_path(key: str, shape: Tuple[int, ...]) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
     """Port key and tensor shape -> (flax path incl. collection, flax shape)."""
     *mods, leaf = key.split(".")

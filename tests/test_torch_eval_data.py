@@ -197,7 +197,13 @@ NARROW = dict(npoints=4, ufc_layer_nums=(1, 1, 1), mask_upsample=32)
 @pytest.fixture(scope="module")
 def small_archive(tmp_path_factory):
     """A 32 x 57-frame archive (32^2 images after the square crop), and a
-    checkpoint of a narrow seeded model written by the port."""
+    checkpoint of a narrow seeded model written by the port, its weights
+    also as a reference ``.pth`` and as a JAX ``.npz`` written by the JAX
+    package's ``save``."""
+    import types
+
+    from coponerf_tpu.training.checkpoint import save as jax_save
+    from coponerf_tpu_torch.utils.convert import to_flax
     from coponerf_tpu_torch.config import Config, ModelConfig
     from coponerf_tpu_torch.models import CoPoNeRF
     from coponerf_tpu_torch.training import checkpoint, trainer
@@ -213,7 +219,16 @@ def small_archive(tmp_path_factory):
         ckpts[fast] = checkpoint.save(str(root / f"ckpt_{fast}"), state, step=0)
     # the exact model's weights as a reference (.pth) checkpoint
     ckpts["pth"] = str(root / "reference.pth")
-    torch.save({"model": port_to_reference(torch.load(ckpts[False], weights_only=True)["model"])}, ckpts["pth"])
+    weights = torch.load(ckpts[False], weights_only=True)["model"]
+    torch.save({"model": port_to_reference(weights)}, ckpts["pth"])
+    tree = {"params": {}, "batch_stats": {}}
+    for k, v in weights.items():
+        path, arr = to_flax(k, v.numpy())
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = arr
+    ckpts["npz"] = jax_save(str(root / "jax"), types.SimpleNamespace(**tree), step=0)
     return img_root, pose_root, overlap, ckpts
 
 
@@ -253,20 +268,22 @@ def test_entry_evaluates_on_cpu(small_archive, narrow_entry, capsys, fast, tmp_p
 
 def test_entry_refusals(small_archive, narrow_entry, monkeypatch, capsys, tmp_path):
     """No CUDA and no --device cpu: exit 2.  No checkpoint or no LPIPS
-    decision: refused with a message.  A reference .pth checkpoint loads
-    and evaluates as the same weights' port checkpoint does, the full
-    protocol with the LPIPS column (random VGG weights)."""
+    decision: refused with a message.  A reference .pth checkpoint and a
+    JAX .npz load and evaluate as the same weights' port checkpoint does,
+    the full protocol with the LPIPS column (random VGG weights): the same
+    table bit for bit."""
     img_root, pose_root, _, ckpts = small_archive
     base = ["--data_root", img_root, "--pose_root", pose_root]
     weights = lpips_jax.make_random_weights(str(tmp_path / "lpips_vgg.npz"))
     run = ["--device", "cpu", "--max_batches", "1", "--lpips_weights", weights, "--batch_size", "1", "--chunk",
            "400", "--logging_root", str(tmp_path)]
     tables = []
-    for ckpt in (ckpts["pth"], ckpts[False]):
+    for ckpt in (ckpts["pth"], ckpts[False], ckpts["npz"]):
         assert narrow_entry.main(base + ["--checkpoint_path", ckpt] + run) == 0
         tables.append([line for line in capsys.readouterr().out.splitlines() if line.startswith("all: ")][-1])
     drop = lambda t: [kv for kv in t.split(", ") if not kv.startswith("rays_per_sec")]
-    assert drop(tables[0]) == drop(tables[1]) and any(kv.startswith("lpips_avg") for kv in drop(tables[0]))
+    assert drop(tables[0]) == drop(tables[1]) == drop(tables[2])
+    assert any(kv.startswith("lpips_avg") for kv in drop(tables[0]))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert narrow_entry.main(base + ["--checkpoint_path", ckpts[False], "--allow_missing_lpips"]) == 2
     for extra, match in ((["--allow_missing_lpips"], "checkpoint_path"),

@@ -3,7 +3,8 @@
 ``fused_argmax=True``, the evaluation layer (harness, metrics, LPIPS,
 overlap, scene readers, the native scene cache, loader, the ``test``
 entry), a camera path, in-training validation with its summaries, the
-``.pth`` import, the ``train`` and ``render_path`` entries, the sampler
+``.pth`` import, the JAX ``.npz`` writer and reader, the ``train`` and
+``render_path`` entries, the sampler
 bench, the data-parallel layer (``parallel/``: a one-rank gloo mesh's train
 step and ray-sharded render) and the multi-rank tests' rank functions
 (``tests/torch_dist_helpers.py``) load no module of ``jax``, ``flax`` or
@@ -78,6 +79,16 @@ tcfg = Config(model=cfg, loss=LossConfig(pose=True, cycle=True, ssim=True), trai
 state = trainer.create_train_state(tcfg, 32, "cpu", model=model)
 metrics = trainer.train_step(state, batch_to_torch(make_batch(batch_size=2, image_size=32, n_rays=8, seed=1)[0], "cpu"), tcfg)
 assert state.updates == 1 and all(torch.isfinite(v) for v in metrics.values())
+from coponerf_tpu_torch.training.checkpoint import load_weights
+from coponerf_tpu_torch.utils import jax_checkpoint
+with tempfile.TemporaryDirectory() as d:
+    path = jax_checkpoint.save(d, state, step=state.step)
+    back = trainer.create_train_state(tcfg, 32, "cpu", model=CoPoNeRF(cfg, image_size=32))
+    jax_checkpoint.restore_into(back, path)
+    assert (back.step, back.updates) == (state.step, state.updates)
+    for k, v in state.model.state_dict().items():
+        assert torch.equal(v, back.model.state_dict()[k]), k
+    load_weights(CoPoNeRF(cfg, image_size=32), path)
 class Logger:
     def __init__(self):
         self.tags = []

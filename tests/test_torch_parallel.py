@@ -31,6 +31,7 @@ Bounds, each with its largest reading on this host:
 """
 
 import collections
+import os
 import shutil
 import types
 from concurrent.futures import ThreadPoolExecutor
@@ -237,6 +238,20 @@ def test_one_rank_mesh_step_is_the_plain_step_bit_for_bit(runs, tmp_path):
 
 def _mesh(shape, axes, rank):
     return Mesh(shape=shape, axes=axes, rank=rank, world_size=int(np.prod(shape)), groups={})
+
+
+def test_other_ranks_outwait_a_rank0_validation_longer_than_the_collective_timeout(tmp_path):
+    """Rank 0 alone checkpoints and validates; with a collective timeout of
+    2 s its validation sleeps 5 s, and rank 1, which waits for it on the
+    group's store and not in the next step's all-reduce, goes on with it:
+    both take three steps, rank 0 validates after steps 1 and 2."""
+    from coponerf_tpu_torch.parallel.launch import run_ranks
+    from torch_dist_helpers import slow_rank0_rank
+
+    got = run_ranks(slow_rank0_rank, 2, "gloo", f"file://{tmp_path}/rendezvous", args=(str(tmp_path), 5.0),
+                    threads=1, deadline_s=120.0, timeout_s=2.0)
+    assert got == [(3, [1, 2]), (3, [])]
+    assert sorted(os.listdir(tmp_path / "slow" / "checkpoints")) == ["model_current.pt", "model_final.pt"]
 
 
 def test_shard_batch_cuts_rows_on_data_and_query_rays_on_rays():

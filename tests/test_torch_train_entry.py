@@ -12,6 +12,7 @@ to the JAX package's in ``tests/test_torch_validation.py``.
 import dataclasses
 import json
 import os
+import shutil
 
 import numpy as np
 import torch
@@ -209,6 +210,39 @@ def test_train_entry_on_two_cpu_ranks_is_the_one_rank_run(tmp_path, monkeypatch)
     assert train_entry.main(argv) == 0
     resumed = torch.load(tmp_path / "resumed" / "checkpoints" / "model_final.pt", weights_only=True)
     assert resumed["step"] == resumed["updates"] == 3
+
+
+def test_train_entry_resumes_from_a_jax_npz(tmp_path, monkeypatch):
+    """``--checkpoint_path X.npz``, a JAX checkpoint (written here by
+    ``utils/jax_checkpoint.py:save`` from a state with seeded Adam moments,
+    step 12, count 7, 2 and 5 steps skipped), resumes the run whole: one
+    step later the counters are step 13, updates 8, none skipped in a row,
+    5 in all; every parameter's Adam step is 8, and the update took the
+    learning rate of count 7 (epoch 2 of 3-step epochs: lr x 0.95^2)."""
+    from coponerf_tpu_torch.utils import jax_checkpoint
+
+    monkeypatch.setattr(tconfig, "ModelConfig", lambda **kw: ModelConfig(**kw, npoints=4, ufc_layer_nums=(1, 1, 1)))
+    argv = _synthetic_argv(tmp_path, "npz", 1, batch_size=1)
+    argv[argv.index("--max_steps") + 1] = "1"
+    argv[argv.index("--steps_til_summary") + 1] = "3"          # synthetic data: 3-step epochs
+    cfg = train_entry.build_config(train_entry.build_parser().parse_args(argv), IMG, 0)
+    src = trainer.create_train_state(cfg, IMG, "cpu")
+    gen = torch.Generator().manual_seed(0)
+    for p in src.model.parameters():
+        mu = 1e-4 * torch.randn(p.shape, generator=gen)
+        src.optimizer.state[p] = {"step": torch.tensor(7.0), "exp_avg": mu, "exp_avg_sq": mu * mu + 1e-8}
+    src.step, src.updates, src.notfinite_count, src.total_notfinite = 12, 7, 2, 5
+    npz = jax_checkpoint.save(str(tmp_path / "jax"), src, step=12)
+    try:
+        assert train_entry.main(argv + ["--checkpoint_path", npz]) == 0
+    finally:
+        os.remove(npz)
+    ck = torch.load(tmp_path / "npz" / "checkpoints" / "model_final.pt", weights_only=True)
+    assert (ck["step"], ck["updates"], ck["notfinite_count"], ck["total_notfinite"]) == (13, 8, 0, 5)
+    assert {float(st["step"]) for st in ck["optimizer"]["state"].values()} == {8.0}
+    assert len(ck["optimizer"]["state"]) == len(list(src.model.parameters()))
+    assert ck["optimizer"]["param_groups"][0]["lr"] == trainer.learning_rate(cfg, 7) == cfg.train.lr * 0.95 ** 2
+    shutil.rmtree(tmp_path / "npz")         # about 1.2 GB
 
 
 def test_train_entry_refuses_more_ranks_than_cards_or_an_uneven_batch(tmp_path, monkeypatch):

@@ -101,11 +101,11 @@ def setup(tmp_path_factory):
                                               n_frames=N_FRAMES, image_size=IMG, chunk=CHUNK),
         "scene_path": jtraj.render_scene_path(jm, variables, item, image_size=IMG, chunk=CHUNK),
     }
-    return port, batch_np, cfg, item, ref
+    return port, batch_np, cfg, item, ref, jax.tree.map(np.asarray, variables)
 
 
 def test_camera_path_items_match_jax(setup):
-    _, _, cfg, item, _ = setup
+    _, _, cfg, item, _, _ = setup
     got = CameraPathDataset(cfg, max_frames=N_FRAMES + 1)[0]
     assert sorted(got) == sorted(item)
     for part in item:
@@ -117,7 +117,7 @@ def test_camera_path_items_match_jax(setup):
 
 
 def test_render_trajectory_matches_jax(setup):
-    port, batch_np, _, _, ref = setup
+    port, batch_np, _, _, ref, _ = setup
     got = ttraj.render_trajectory(port, batch_np, n_frames=N_FRAMES, image_size=IMG, chunk=CHUNK)
     assert got.shape == (N_FRAMES, IMG, IMG, 3) and got.dtype == np.float32
     np.testing.assert_allclose(got, ref["trajectory"], **TOL)
@@ -126,7 +126,7 @@ def test_render_trajectory_matches_jax(setup):
 def test_render_trajectory_circle_poses(setup, monkeypatch):
     """With ``circle_radius`` the frames are rendered at JAX's path: the
     interpolated poses with the circle added to their translations."""
-    port, batch_np, _, _, _ = setup
+    port, batch_np, _, _, _, _ = setup
     seen = []
     monkeypatch.setattr(ttraj, "render_poses", lambda model, batch, state, poses, chunk: seen.append(poses)
                         or torch.zeros(len(poses), IMG * IMG, 3))
@@ -138,7 +138,7 @@ def test_render_trajectory_circle_poses(setup, monkeypatch):
 
 
 def test_render_scene_path_matches_jax(setup):
-    port, _, _, item, ref = setup
+    port, _, _, item, ref, _ = setup
     got = ttraj.render_scene_path(port, item, image_size=IMG, chunk=CHUNK)
     assert got.shape == (N_FRAMES, IMG, IMG, 3)
     np.testing.assert_allclose(got, ref["scene_path"], **TOL)
@@ -166,6 +166,33 @@ def test_render_path_entry_writes_png_frames(tmp_path, monkeypatch):
         assert decoded.dtype == np.uint8 and decoded.shape == (IMG, IMG, 3)
         np.testing.assert_array_equal(decoded, u8[i])
     assert not os.path.exists(out / "frame_002.png")
+
+
+def test_render_path_entry_takes_a_jax_npz(setup, tmp_path, monkeypatch):
+    """``--checkpoint`` of a JAX ``.npz`` (the fixture's JAX weights, written
+    by the JAX package's ``save``): the PNGs are the frames of
+    ``render_trajectory`` on the port model holding those weights."""
+    import types
+
+    from PIL import Image
+
+    from coponerf_tpu.training.checkpoint import save as jax_save
+
+    jm_variables = setup[-1]
+    npz = jax_save(str(tmp_path), types.SimpleNamespace(**jm_variables), step=3)
+    narrow = lambda **kw: ModelConfig(**{**kw, **CFG_KW})
+    monkeypatch.setattr(render_path, "ModelConfig", narrow)
+    out = tmp_path / "frames"
+    assert render_path.main(["--checkpoint", npz, "--image_size", str(IMG), "--n_frames", "2", "--cf", "4,2",
+                             "--device", "cpu", "--out", str(out)]) == 0
+    model = CoPoNeRF(narrow(fast_sampling=True, compute_dtype="bfloat16", coarse_samples=4, fine_samples=2),
+                     image_size=IMG).eval()
+    model.load_state_dict(convert(jm_variables), strict=True)
+    batch, _ = make_batch(batch_size=1, image_size=IMG, n_rays=16, seed=0)
+    frames = ttraj.render_trajectory(model, batch, n_frames=2, image_size=IMG, chunk=IMG * IMG)
+    u8 = np.clip((frames * 0.5 + 0.5) * 255.0, 0, 255).astype(np.uint8)
+    for i in range(2):
+        np.testing.assert_array_equal(np.asarray(Image.open(out / f"frame_{i:03d}.png")), u8[i])
 
 
 def test_render_path_entry_refusals(tmp_path, monkeypatch):

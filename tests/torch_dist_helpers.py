@@ -120,3 +120,36 @@ class IndexDataset:
 
     def __getitem__(self, i):
         return ({"i": np.array(i)},)
+
+
+def slow_rank0_rank(rank, world, logdir, sleep_s):
+    """``trainer.train`` for three steps on a stand-in model whose step is
+    one all-reduce (the real step's collectives, without its cost), with a
+    checkpoint and validation after steps 1 and 2; rank 0's validation of
+    step 1 sleeps ``sleep_s``.  Returns (steps taken, the steps validated)."""
+    import time
+
+    import torch.distributed as dist
+
+    from coponerf_tpu_torch.config import Config, TrainConfig
+
+    def step(state, batch, cfg, mesh=None):
+        x = torch.ones(1)
+        dist.all_reduce(x)
+        state.step += 1
+        return {"total_train_loss": x[0]}
+
+    trainer.train_step = step           # in this rank's process only
+    validated = []
+
+    def val_fn(state, step, logger):
+        validated.append(step)
+        if step == 1:
+            time.sleep(sleep_s)
+
+    model = torch.nn.Linear(2, 2)
+    state = trainer.TrainState(model=model, optimizer=torch.optim.Adam(model.parameters()))
+    cfg = Config(train=TrainConfig(steps_til_summary=1, epochs_til_ckpt=0, iters_til_ckpt=0), logging_root=logdir,
+                 experiment_name="slow")
+    trainer.train(cfg, [{}], num_steps=3, state=state, device="cpu", val_fn=val_fn, mesh=make_mesh())
+    return state.step, validated
