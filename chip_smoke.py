@@ -117,7 +117,16 @@ result line:
      process's chunked render on every rank; (d) with two cards or more,
      (b) and (c) over NCCL, one card a rank (otherwise one line says it did
      not run).  Each rank counts its own launches, checked per step and
-     per render, and reported under paths of their own.
+     per render, and reported under paths of their own;
+  9. the train step's formulations in phase 6's config, each pair of
+     states from the same seeded weights taking steps on one batch in
+     turns: (a) the last UFC layer with and without its dead second
+     refinement (the features bit for bit), (b) conv4d_impl 2d and 3d,
+     (c) remat_policy full and dots (first-step losses at 2e-2), (d) the
+     per-leaf and the flat optimizer over three steps beside a second
+     per-leaf state, (e) both under a one-rank NCCL mesh; each with its
+     median step ms, busy share and launches of a profiled step, peak
+     memory, and phase 6's launch counts checked at every step.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.  The script imports only coponerf_tpu_torch.
 """
@@ -827,14 +836,6 @@ def profile_step(step, card: str, label: str) -> None:
         t = sum(e.self_device_time_total for e in kernels if m in e.key) / 1e3
         n = sum(e.count for e in kernels if m in e.key)
         log(f"[profile]   port kernel {m}: {t:.2f} ms in {n} launches ({t / max(total, 1e-9):.3f} of kernel time)")
-
-
-def resident_bytes(state) -> int:
-    """Device bytes a train state holds between steps: parameters, buffers
-    and the optimizer's moments (gradients are freed after each step)."""
-    ts = [*state.model.parameters(), *state.model.buffers()]
-    ts += [v for s in state.optimizer.state.values() for v in s.values() if torch.is_tensor(v)]
-    return sum(t.numel() * t.element_size() for t in ts if t.is_cuda)
 
 
 def slice_chunk(batch, lo: int, hi: int):
@@ -1614,11 +1615,360 @@ def phase_parallel(dev, card: str, launches, pose: bool = False) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def flat_params(state) -> torch.Tensor:
+    return torch.cat([p.detach().reshape(-1) for p in state.model.parameters()])
+
+
+def phase_formulations(dev, card: str, launches, n_steps: int = 3) -> None:
+    """9. the train step's formulations at full width, phase 6's fast
+    config (pose + cycle + SSIM, batch 6 x 256^2, 192 rays x 64 samples),
+    each pair of states built from the same seeded weights and taking its
+    steps on the same batch in turns:
+    (a) the last UFC layer (stage 2: 64^2 tokens, the 16^2 x 16^2 volume,
+        bf16) on the inputs it gets in an encode of the batch, with
+        ``refine_last_corr`` True and False in turns, forward alone and
+        forward + backward of a loss of its features: the features bit
+        for bit; ms, device launches and peak memory of each;
+    (b) ``conv4d_impl`` "2d" and "3d": first-step losses at 2e-2 relative
+        (bf16 sums in another order), the pose term's aside (see
+        ``first_steps``); then one step of each with the pose term off,
+        every loss, the grad norm, the Conv4d weights' gradients and the
+        whole gradient as Adam is handed them at 2e-2 (the Conv4d
+        weights' at 5e-2), beside the 2d step on context images scaled by
+        (1 + 2^-8); and, pose term on, the 2d and 3d first steps on the
+        batch and on its context images scaled by (1 +- 2^-8):
+        grad norm, pose loss and the pairs' rotation angles, printed;
+    (c) ``remat_policy`` "full" and "dots": the same first-step bound, and
+        whether the first steps are bit for bit;
+    (d) the per-leaf and the flat optimizer, three steps each, the
+        per-leaf state first: the flat state's own gradient as Adam is
+        handed it at 2e-2 of the per-leaf one's (K4's atomics), then
+        replaced by it, so that both Adams take the same gradients and
+        the flat state's update after three steps equals the per-leaf
+        one's at 1e-5 relative; the first steps' losses bit for bit;
+    (e) the flat and the per-leaf step under a one-rank NCCL mesh (the
+        flat gradient vector all-reduced in place): first-step losses bit
+        for bit, grad norm 1e-2 (K4's atomics).
+    Each configuration: median step ms, device busy share and launches of
+    one more step under torch.profiler, and peak memory (its step's peak
+    less the other states' resident tensors).  Every step launches phase
+    6's kernels (K1 6, K2 2, K4 6), checked at every step."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from coponerf_tpu_torch.bench_kernels import profile_summary, resident_bytes
+    from coponerf_tpu_torch.data.synthetic import make_batch
+    from coponerf_tpu_torch.geometry import geodesic_rotation_distance
+    from coponerf_tpu_torch.models import CoPoNeRF, batch_to_torch
+    from coponerf_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from coponerf_tpu_torch.training import trainer
+    from coponerf_tpu_torch.utils.init import init_weights
+
+    t_phase = time.perf_counter()
+    base, _ = dp_configs(True)
+    weights = init_weights(CoPoNeRF(base.model, image_size=IMAGE), seed=0).state_dict()
+    batch = batch_to_torch(make_batch(batch_size=TRAIN_BATCH, image_size=IMAGE, n_rays=TRAIN_RAYS, seed=1)[0], dev)
+    per_step = dict.fromkeys(KERNELS, 0)
+    per_step.update(PER_TRAIN_STEP)
+    log(f"[formulations] weights and batch ready in {time.perf_counter() - t_phase:.1f} s")
+
+    # (a) the last UFC layer with and without its second refinement, on the
+    # inputs it gets in an encode of the batch
+    with torch.device(dev):
+        model = CoPoNeRF(base.model, image_size=IMAGE).eval()
+    model.load_state_dict(weights)
+    last = len(base.model.ufc_layer_nums) - 1
+    layer = getattr(model.feature_cost_aggregation, f"layers_{last}_{base.model.ufc_layer_nums[last] - 1}")
+    seen = {}
+    hook = layer.register_forward_pre_hook(lambda mod, args: seen.update(args=args[:2]))
+    with torch.no_grad():
+        model.encode(batch)
+    hook.remove()
+    corr, feat2 = (a.detach() for a in seen["args"])
+    del seen
+
+    def fwd(refine):
+        with torch.no_grad():
+            return layer(corr, feat2, refine)[1]
+
+    def fwd_bwd(refine):
+        x = feat2.detach().requires_grad_(True)
+        out = layer(corr, x, refine)[1]
+        out.float().square().mean().backward()
+        layer.zero_grad(set_to_none=True)
+        return out.detach()
+
+    outs = [fn(r) for fn in (fwd, fwd_bwd) for r in (True, False)]
+    finite = all(bool(torch.isfinite(o).all()) for o in outs)
+    same = finite and torch.equal(outs[0], outs[1]) and torch.equal(outs[2], outs[3])
+    log(f"[formulations] (a) inputs from an encode of the batch: corr {tuple(corr.shape)} {corr.dtype}, features "
+        f"{tuple(feat2.shape)}; outputs finite {finite}")
+    res = {}
+    for what, fn in (("forward", fwd), ("forward+backward", fwd_bwd)):
+        ms = dict(zip((True, False), cuda_ms_in_turns([lambda: fn(True), lambda: fn(False)], reps=5, inner=3)))
+        for refine in (True, False):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base_mem = torch.cuda.memory_allocated()
+            fn(refine)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base_mem
+            prof = profile_summary(lambda: fn(refine))
+            res[(what, refine)] = (ms[refine], prof["launches"], peak)
+        (t1, n1, m1), (t0, n0, m0) = res[(what, True)], res[(what, False)]
+        log(f"[formulations] (a) last UFC layer {what}, batch {TRAIN_BATCH}: refine_last_corr True {t1:.3f} ms, "
+            f"{n1} launches, peak {m1 / 2 ** 30:.2f} GiB; False {t0:.3f} ms, {n0} launches, peak "
+            f"{m0 / 2 ** 30:.2f} GiB; saves {t1 - t0:.3f} ms a call [{card}]")
+    log(f"[formulations] (a) the layer's features with and without the refinement: "
+        f"{'bit for bit ok' if same else 'DIFFER: FAIL'}")
+    if not same:
+        raise RuntimeError("the last UFC layer's features depend on its dead refinement")
+    del model, layer, corr, feat2, outs
+    torch.cuda.empty_cache()
+
+    def make_state(cfg):
+        with torch.device(dev):         # no fill on the host: the weights come next
+            model = CoPoNeRF(cfg.model, image_size=IMAGE)
+        model.load_state_dict(weights)
+        return trainer.create_train_state(cfg, IMAGE, dev, model=model)
+
+    def states(cfgs: dict) -> dict:
+        """{label: dict(cfg, state, times, metrics, peak)}, a fresh state of
+        each configuration of ``cfgs`` from the same weights."""
+        return {k: dict(cfg=c, state=make_state(c), times=[], metrics=[], peak=0) for k, c in cfgs.items()}
+
+    def run(tag: str, runs: dict, steps: int, mesh=None, turns: bool = True) -> dict:
+        """``steps`` steps of each state of ``runs``, in turns (or always in
+        the order of ``runs``); returns ``runs``."""
+        total = {k: dict.fromkeys(KERNELS, 0) for k in runs}
+        for i in range(steps):
+            for label in (list(runs)[::-1] if turns and i % 2 else list(runs)):
+                r = runs[label]
+                others = sum(resident_bytes(o["state"]) for k, o in runs.items() if k != label)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches()
+                t0 = time.perf_counter()
+                mt = trainer.train_step(r["state"], batch, r["cfg"], mesh=mesh)
+                torch.cuda.synchronize()
+                r["times"].append((time.perf_counter() - t0) * 1e3)
+                got = read_launches()
+                if got != per_step:
+                    raise RuntimeError(f"({tag}) {label} step {i}: launches {got}, expected {per_step}")
+                for k in KERNELS:
+                    total[label][k] += got[k]
+                r["peak"] = max(r["peak"], torch.cuda.max_memory_allocated() - others)
+                r["metrics"].append({k: float(v) for k, v in mt.items()})
+        for label in runs:
+            launches[f"formulations_{tag}_{label}"] = total[label]
+        return runs
+
+    def one_step(tag: str, cfg, batch_, record: bool = True) -> tuple:
+        """One step of a fresh state of ``cfg`` on ``batch_``: its metrics,
+        the gradient its Adam is handed (after the clip), {name: tensor},
+        and the geodesic angles between the estimated and the true
+        relative rotations of its pairs (radians).  Its launches are kept
+        under path ``formulations_<tag>`` where ``record``."""
+        st = make_state(cfg)
+        seen, angles = {}, []
+        hooks = [st.optimizer.register_step_pre_hook(lambda opt, args, kwargs: seen.update(
+                     (k, p.grad.detach().clone()) for k, p in st.model.named_parameters())),
+                 st.model.register_forward_hook(lambda mod, args, out: angles.extend(geodesic_rotation_distance(
+                     out["rel_pose"][:, :3, :3].detach(), out["gt_rel_pose"][:, :3, :3]).tolist()))]
+        reset_launches()
+        try:
+            mt = trainer.train_step(st, batch_, cfg)
+        finally:
+            for h in hooks:
+                h.remove()
+        got = read_launches()
+        if record:
+            launches[f"formulations_{tag}"] = got
+        if got != per_step:
+            raise RuntimeError(f"({tag}): launches {got}, expected {per_step}")
+        if not seen:
+            raise RuntimeError(f"({tag}): the step applied no update")
+        return {k: float(v) for k, v in mt.items()}, seen, angles
+
+    def rel_norm(a: dict, b: dict, keys) -> float:
+        """|a - b| / |b| over the tensors ``keys`` of two {name: tensor}."""
+        num = sum(float((a[k].double() - b[k].double()).square().sum()) for k in keys)
+        return (num / sum(float(b[k].double().square().sum()) for k in keys)) ** 0.5
+
+    def report(tag: str, runs, mesh=None) -> None:
+        for label, r in runs.items():
+            prof = profile_summary(lambda: trainer.train_step(r["state"], batch, r["cfg"], mesh=mesh))
+            med = statistics.median(r["times"][1:])         # the first step warms up
+            log(f"[formulations] ({tag}) {label}: step {med:.1f} ms (median after the first; steps "
+                + ", ".join(f"{t:.1f}" for t in r["times"]) + f"), one more under the profiler: wall "
+                f"{prof['wall_ms']:.1f} ms, kernel {prof['kernel_ms']:.1f} ms, busy {prof['busy']:.2f}, "
+                f"{prof['launches']} launches; peak {r['peak'] / 2 ** 30:.2f} GiB [{card}]")
+            log(f"[formulations] ({tag}) {label} top kernels: " + "; ".join(
+                f"{k} {ms:.2f} ms x{n}" for k, ms, n in prof["top"]))
+
+    def first_steps(tag: str, runs, a: str, b: str, bound: float, exact: bool = False) -> None:
+        """The first steps' metrics: with ``exact`` (the same forward) the
+        losses bit for bit and the grad norm at ``bound`` (K4's atomics);
+        otherwise every loss but the pose term's, and the total less it,
+        at ``bound``: at random weights the pose head turns bf16-level
+        differences of its input tokens into pose losses and gradients
+        that differ by far more (phase 7's reason; (b)'s nudged step shows
+        it), so the pose loss and the grad norm, which it dominates, are
+        printed here and held with the pose term off in (b)."""
+        ma, mb = (dict(m, total_less_pose=m["total_train_loss"] - m["pose_loss"])
+                  for m in (runs[a]["metrics"][0], runs[b]["metrics"][0]))
+        rel = {k: abs(mb[k] - v) / (abs(v) + 1e-12) for k, v in ma.items()}
+        bitwise = all(ma[k] == mb[k] for k in ma if k != "grad_norm")
+        if exact:
+            held = ["grad_norm"]
+            good = bitwise and rel["grad_norm"] <= bound
+        else:
+            held = [k for k in ma if k not in ("pose_loss", "total_train_loss", "grad_norm")]
+            good = max(rel[k] for k in held) <= bound
+        good = good and all(np.isfinite(list(mb.values())))
+        log(f"[formulations] ({tag}) first step, {b} vs {a}: " + ", ".join(f"{k} {mb[k]:.7g}/{ma[k]:.7g}"
+                                                                          for k in ma)
+            + f"; max rel of {', '.join(held)}: {max(rel[k] for k in held):.3e} (bound {bound:g}), losses bit "
+              f"for bit: {bitwise} " + ("ok" if good else "FAIL"))
+        if not good:
+            raise RuntimeError(f"({tag}) the {b} and {a} steps disagree")
+
+    def with_model(cfg=base, **kw):
+        return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **kw))
+
+    def with_train(**kw):
+        return dataclasses.replace(base, train=dataclasses.replace(base.train, **kw))
+
+    log(f"[formulations] (a) took {time.perf_counter() - t_phase:.1f} s")
+
+    # (b) conv4d_impl, (c) remat_policy
+    for tag, a, b, key in (("b", "2d", "3d", "conv4d_impl"), ("c", "full", "dots", "remat_policy")):
+        t0 = time.perf_counter()
+        runs = run(tag, states({a: with_model(**{key: a}), b: with_model(**{key: b})}), n_steps)
+        first_steps(tag, runs, a, b, 2e-2)
+        report(tag, runs)
+        del runs
+        torch.cuda.empty_cache()
+        log(f"[formulations] ({tag}) took {time.perf_counter() - t0:.1f} s")
+
+    # (b) with the pose term off: every loss, the grad norm, the Conv4d
+    # weights' gradients and the whole gradient, as Adam is handed them, of
+    # the 3d step against the 2d one: what cuDNN's bf16 conv3d backward
+    # (its wgrad and, through the layers below, its dgrad) gives
+    t0 = time.perf_counter()
+    off, _ = dp_configs(False)
+    (m2, g2, _), (m3, g3, _) = (one_step(f"b_pose_off_{impl}", with_model(off, conv4d_impl=impl), batch)
+                                for impl in ("2d", "3d"))
+    conv = [k for k in g2 if k.endswith(("query_conv.weight", "supp_conv.weight"))]
+    rel = {k: abs(m3[k] - v) / (abs(v) + 1e-12) for k, v in m2.items()}
+    g_conv, g_all = rel_norm(g3, g2, conv), rel_norm(g3, g2, list(g2))
+    n_params = len(g2)
+    del g3
+
+    def nudged(scale: float) -> dict:
+        return {**batch, "context": {**batch["context"], "rgb": batch["context"]["rgb"] * scale}}
+
+    # the same 2d step on context images scaled by (1 + 2^-8), half a bf16
+    # step: how far a bf16-level change of the inputs moves these numbers
+    mn, gn, _ = one_step("b_nudged_pose_off_2d", with_model(off, conv4d_impl="2d"), nudged(1 + 2 ** -8), record=False)
+    n_rel = max(abs(mn[k] - v) / (abs(v) + 1e-12) for k, v in m2.items())
+    n_conv, n_all = rel_norm(gn, g2, conv), rel_norm(gn, g2, list(g2))
+    del gn, g2
+    good = (max(rel.values()) <= 2e-2 and g_all <= 2e-2 and g_conv <= 5e-2
+            and all(np.isfinite(list(m3.values()))))
+    log(f"[formulations] (b) pose term off, first step, 3d vs 2d: " + ", ".join(
+        f"{k} {m3[k]:.7g}/{v:.7g}" for k, v in m2.items()) + f"; max rel {max(rel.values()):.3e} (bound 2e-2); "
+        f"gradients handed to Adam, |3d - 2d| / |2d|: all {n_params} parameters "
+        f"{g_all:.3e} (bound 2e-2), the {len(conv)} Conv4d weights {g_conv:.3e} (bound 5e-2) "
+        f"{'ok' if good else 'FAIL'}; the 2d step on the context images x (1 + 2^-8) against the 2d step: "
+        f"max rel {n_rel:.3e}, all parameters {n_all:.3e}, Conv4d weights {n_conv:.3e}")
+    if not good:
+        raise RuntimeError("(b) with the pose term off, the 3d and 2d steps disagree")
+    # the pose term on, 2d and 3d, the batch and its context images scaled
+    # two ways at bf16 level: the spread of the grad norm and the pose
+    # loss, and the pairs' rotation angles, whose arccos gradient (1 / sin
+    # of the angle) sets the pose term's gradient
+    scales = (("x (1 + 2^-8)", 1 + 2 ** -8), ("x (1 - 2^-8)", 1 - 2 ** -8))
+    for impl in ("2d", "3d"):
+        rows = [("batch", *one_step(f"b_angles_{impl}", with_model(conv4d_impl=impl), batch, record=False)[::2])]
+        rows += [(label, *one_step(f"b_nudged_{impl}", with_model(conv4d_impl=impl), nudged(sc), record=False)[::2])
+                 for label, sc in scales]
+        log(f"[formulations] (b) pose term on, {impl}, first step: " + "; ".join(
+            f"{label}: grad_norm {m['grad_norm']:.6g}, pose_loss {m['pose_loss']:.6g}, angles "
+            + " ".join(f"{a:.3e}" for a in ang) for label, m, ang in rows))
+    log(f"[formulations] (b) pose term off and the nudged steps took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # (d) the per-leaf and the flat optimizer, three steps from the same
+    # weights, the per-leaf state first in each.  Two runs of a step differ
+    # on the card (K4's atomics, cuDNN's backward), and Adam's first steps
+    # turn any sign of a gradient element into a whole step, so the flat
+    # state's own gradient is held to the per-leaf one's and then replaced
+    # by it (a step pre-hook): both Adams apply the same gradients, and the
+    # flat state's update must equal the per-leaf one's
+    t0 = time.perf_counter()
+    runs = states({"per_leaf": base, "flat": with_train(flat_optimizer=True)})
+    leaf_st, flat_st = runs["per_leaf"]["state"], runs["flat"]["state"]
+    handed, own = {}, []
+
+    def keep_leaf_grad(opt, args, kwargs):
+        handed["grad"] = torch.cat([p.grad.reshape(-1) for p in leaf_st.model.parameters()])
+
+    def hand_leaf_grad(opt, args, kwargs):
+        g = handed.pop("grad", None)
+        if g is None:
+            raise RuntimeError("(d) the per-leaf step applied no update")
+        own.append(float((flat_st.flat.grad - g).norm() / g.norm()))
+        flat_st.flat.grad.copy_(g)
+
+    hooks = [leaf_st.optimizer.register_step_pre_hook(keep_leaf_grad),
+             flat_st.optimizer.register_step_pre_hook(hand_leaf_grad)]
+    try:
+        run("d", runs, 3, turns=False)
+    finally:
+        for h in hooks:
+            h.remove()
+    names = [k for k, _ in leaf_st.model.named_parameters()]
+    p0 = torch.cat([weights[k].reshape(-1) for k in names]).to(dev)
+    d_leaf, d_flat = flat_params(leaf_st) - p0, flat_params(flat_st) - p0
+    upd = float((d_flat - d_leaf).norm() / d_leaf.norm())
+    good = upd <= 1e-5 and len(own) == 3 and max(own) <= 2e-2
+    log(f"[formulations] (d) the flat state's own gradient, as Adam is handed it, against the per-leaf one's: "
+        f"|d| / |g| " + ", ".join(f"{x:.3e}" for x in own) + " in steps 1-3 (bound 2e-2); after 3 steps on the same "
+        f"gradients the updates |u_flat - u_leaf| / |u_leaf| {upd:.3e} (bound 1e-5; they moved the parameters "
+        f"{float(d_leaf.norm()):.4g} of |p| {float(p0.norm()):.4g}) {'ok' if good else 'FAIL'}")
+    if not good:
+        raise RuntimeError("(d) the flat optimizer's gradient or update differs from the per-leaf one's")
+    del d_leaf, d_flat, p0
+    first_steps("d", runs, "per_leaf", "flat", 1e-2, exact=True)
+    report("d", runs)
+    del runs, leaf_st, flat_st
+    torch.cuda.empty_cache()
+    log(f"[formulations] (d) took {time.perf_counter() - t0:.1f} s")
+
+    # (e) the flat and the per-leaf step under a one-rank NCCL mesh
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed("nccl", 0, 1, f"file://{tmp}/rendezvous", device=dev)
+        try:
+            mesh = make_mesh()
+            runs = run("e", states({"per_leaf_nccl1": base, "flat_nccl1": with_train(flat_optimizer=True)}),
+                       n_steps, mesh)
+            first_steps("e", runs, "per_leaf_nccl1", "flat_nccl1", 1e-2, exact=True)
+            report("e", runs, mesh)
+            del runs
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    log(f"[formulations] the phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
+        from coponerf_tpu_torch.bench_kernels import resident_bytes
         from coponerf_tpu_torch.config import Config, LossConfig, ModelConfig, TrainConfig
         from coponerf_tpu_torch.data.synthetic import make_batch
         from coponerf_tpu_torch.models import CoPoNeRF, batch_to_torch
@@ -1984,6 +2334,9 @@ def main() -> int:
 
     # 8. the multi-rank paths
     phase_parallel(dev, card, launches)
+
+    # 9. the train step's formulations
+    phase_formulations(dev, card, launches)
 
     kernels = []
     for k in KERNELS:

@@ -60,7 +60,16 @@ Prints one JSON line with:
   weights, in turns, host-clock ms of each timed step; and the flat
   gradient all-reduce (``parallel.mesh.average_gradients``) alone on
   random gradients of the reached parameters and of all parameters,
-  CUDA events.
+  CUDA events;
+- ``formulations``: the same train step as ``baseline``, ``conv4d_3d``,
+  ``remat_dots`` and ``flat_optimizer``, one state each from the same
+  weights, steps in turns: the host-clock ms of each timed step and their
+  median, one more step under ``torch.profiler`` (device kernel ms, busy
+  share, device launches, the top kernels) and the peak memory of its
+  steps less the other states' resident tensors;
+  and ``encode_ms``, a 256^2 pair's ``encode()`` in the fast config
+  (batch 1, no gradients) with each Conv4d formulation, in turns (median
+  of five).
 
 Kernel times are CUDA events around 10 back-to-back calls, the median of 5
 such windows; the render and the evaluations are host-clock times up to
@@ -71,7 +80,9 @@ have (the samplers, ``onehot_transpose_matmul``, ``round1_logits``,
 ``round2_logits``, ``split_dense_relu``, ``render_core``,
 ``soft_argmax_stats``, ``soft_argmax_bwd``, ``encode``, ``render``,
 ``evaluate``, ``train_step`` and the mesh's ``init_distributed``,
-``make_mesh`` and ``average_gradients``).  ``--only`` runs some sections alone.
+``make_mesh`` and ``average_gradients``; ``formulations`` needs the
+configuration fields of the train step's formulations).  ``--only`` runs
+some sections alone.
 """
 
 from __future__ import annotations
@@ -91,7 +102,7 @@ TRAIN_RAYS = 192
 SAMPLER_KERNEL = "multilevel_sample_kernel"  # every xy sampling launch (K1, K8a, K8b)
 K5_KERNEL = "soft_argmax"                    # every K5 launch, forward and backward
 SECTIONS = ("samplers", "k4", "attn_embed", "split_dense", "render_core", "k5", "render_eval", "train_step",
-            "dp_step")
+            "dp_step", "formulations")
 
 
 def cuda_ms_in_turns(fns, reps: int = 5, inner: int = 10):
@@ -523,6 +534,96 @@ def time_dp_step(dev, n_steps: int) -> dict:
             "median_dp_ms": statistics.median(times["dp"][2:]), "all_reduce": all_reduce}
 
 
+def profile_summary(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: wall ms, device kernel ms,
+    busy share (kernel time over wall), device kernel launches and the
+    three kernels that took the most device time (name, ms, launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    kms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:3]
+    return dict(wall_ms=wall, kernel_ms=kms, busy=kms / wall, launches=sum(e.count for e in kernels),
+                top=[(e.key[:70], e.self_device_time_total / 1e3, e.count) for e in top])
+
+
+def resident_bytes(state) -> int:
+    """Device bytes a train state holds between steps: parameters, buffers,
+    the optimizer's moments and, with the flat optimizer, its gradient
+    vector (per leaf, gradients are freed after each step)."""
+    ts = [*state.model.parameters(), *state.model.buffers()]
+    ts += [v for s in state.optimizer.state.values() for v in s.values() if torch.is_tensor(v)]
+    ts += [state.flat.grad] if state.flat is not None else []
+    return sum(t.numel() * t.element_size() for t in ts if t.is_cuda)
+
+
+def time_formulations(dev, n_steps: int) -> dict:
+    import dataclasses
+
+    from coponerf_tpu_torch.config import Config, LossConfig, ModelConfig, TrainConfig
+    from coponerf_tpu_torch.data.synthetic import make_batch
+    from coponerf_tpu_torch.models import CoPoNeRF, batch_to_torch
+    from coponerf_tpu_torch.training import trainer
+    from coponerf_tpu_torch.utils.init import init_weights
+
+    base = Config(model=ModelConfig(fast_sampling=True, compute_dtype="bfloat16"),
+                  loss=LossConfig(pose=True, cycle=True, ssim=True), train=TrainConfig())
+    cfgs = {"baseline": base,
+            "conv4d_3d": dataclasses.replace(base, model=dataclasses.replace(base.model, conv4d_impl="3d")),
+            "remat_dots": dataclasses.replace(base, model=dataclasses.replace(base.model, remat_policy="dots")),
+            "flat_optimizer": dataclasses.replace(base, train=dataclasses.replace(base.train, flat_optimizer=True))}
+    weights = init_weights(CoPoNeRF(base.model, image_size=IMAGE), seed=0).state_dict()
+    batch = batch_to_torch(make_batch(batch_size=6, image_size=IMAGE, n_rays=TRAIN_RAYS, seed=1)[0], dev)
+
+    states = {}
+    for label, cfg in cfgs.items():
+        model = CoPoNeRF(cfg.model, image_size=IMAGE)
+        model.load_state_dict(weights)
+        states[label] = trainer.create_train_state(cfg, IMAGE, dev, model=model)
+    times = {k: [] for k in cfgs}
+    peak = dict.fromkeys(cfgs, 0)
+    for i in range(n_steps + 2):          # two warm-up steps
+        for label in (list(cfgs) if i % 2 == 0 else list(cfgs)[::-1]):
+            others = sum(resident_bytes(s) for k, s in states.items() if k != label)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            trainer.train_step(states[label], batch, cfgs[label])
+            torch.cuda.synchronize()
+            times[label].append((time.perf_counter() - t0) * 1e3)
+            peak[label] = max(peak[label], torch.cuda.max_memory_allocated() - others)
+    train = {}
+    for label in cfgs:
+        prof = profile_summary(lambda: trainer.train_step(states[label], batch, cfgs[label]))
+        train[label] = {"step_ms": times[label][2:], "median_ms": statistics.median(times[label][2:]),
+                        "peak_GiB": peak[label] / 2 ** 30, **prof}
+    del states
+    torch.cuda.empty_cache()
+    enc_cfgs = {k: cfgs[k].model for k in ("baseline", "conv4d_3d")}
+    models = {}
+    for label, mcfg in enc_cfgs.items():
+        m = CoPoNeRF(mcfg, image_size=IMAGE).eval()
+        m.load_state_dict(weights)
+        models[label] = m.to(dev)
+    pair = batch_to_torch(make_batch(batch_size=1, image_size=IMAGE, n_rays=TRAIN_RAYS, seed=0)[0], dev)
+    enc = {k: [] for k in models}
+    with torch.no_grad():
+        for label in models:                # warm-up
+            models[label].encode(pair)
+        for r in range(5):
+            for label in (list(models) if r % 2 == 0 else list(models)[::-1]):
+                enc[label].append(host_ms(lambda: models[label].encode(pair), reps=1))
+    return {"train_step": train, "encode_ms": {k: statistics.median(v) for k, v in enc.items()},
+            "encode_turns_ms": enc}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=5, help="timed train steps (after two warm-up steps)")
@@ -547,7 +648,8 @@ def main() -> int:
              ("k5", lambda: result.update(k5=time_k5(dev))),
              ("render_eval", lambda: result.update(time_render_and_eval(dev))),
              ("train_step", lambda: result.update(train_step=time_train_step(dev, args.steps))),
-             ("dp_step", lambda: result.update(dp_step=time_dp_step(dev, args.steps))))
+             ("dp_step", lambda: result.update(dp_step=time_dp_step(dev, args.steps))),
+             ("formulations", lambda: result.update(formulations=time_formulations(dev, args.steps))))
     for name, step in steps:
         if name in only:
             step()

@@ -5,6 +5,14 @@ the same names and defaults, so the same keyword arguments build the same
 configuration in both packages (``tests/test_torch_config_data.py`` holds
 them equal).  ``fused_argmax`` (None = OFF, as in the JAX package) makes
 the UFC extract both flows through the fused soft-argmax K5.
+
+The train step's formulations, each off by default as in the JAX package:
+``conv4d_impl="3d"`` runs each Conv4d branch as one ``conv3d`` on the
+flattened volume; ``remat_policy="dots"`` keeps the UFC layers' matrix
+products through the recompute of ``remat_ufc``; ``ufc_scan`` writes the
+JAX package's scan layout of the UFC into its ``.npz``; ``flat_optimizer``
+runs Adam over one vector of every parameter.  A value outside
+``conv4d_impl``'s or ``remat_policy``'s two raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -32,6 +40,13 @@ class ModelConfig:
     fast_sampling: bool = False
     # recompute each UFC layer in the backward (torch.utils.checkpoint)
     remat_ufc: bool = True
+    # Conv4d branches: "2d" folds the untouched pair into a conv2d batch
+    # (four permute copies a call); "3d" runs each as one conv3d on the
+    # flattened layout, the untouched pair a kernel-1 axis (no copies)
+    conv4d_impl: str = "2d"
+    # with remat_ufc: "full" recomputes the whole layer in the backward;
+    # "dots" keeps its mm/bmm outputs and recomputes the rest
+    remat_policy: str = "full"
     # two-stage coarse-to-fine sampling (inference under fast_sampling);
     # 0/0 = one uniform stage of npoints
     coarse_samples: int = 0
@@ -41,7 +56,17 @@ class ModelConfig:
     convmap_direct_grad: bool = True
     # fast training: the <=64^2 levels go through K1 forward and K4 backward
     train_onehot_small: bool = True
+    # the JAX package's lax.scan over each UFC stage's layers: here only the
+    # layout of the .npz the port writes (the modules keep the loop layout;
+    # the math is the same)
+    ufc_scan: bool = False
     fused_argmax: Optional[bool] = None
+
+    def __post_init__(self):
+        if self.conv4d_impl not in ("2d", "3d"):
+            raise ValueError(f"conv4d_impl must be '2d' or '3d', not {self.conv4d_impl!r}")
+        if self.remat_policy not in ("full", "dots"):
+            raise ValueError(f"remat_policy must be 'full' or 'dots', not {self.remat_policy!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +93,10 @@ class TrainConfig:
     steps_per_epoch: int = 0
     # the process mesh of data-parallel training (parallel/mesh.py make_mesh):
     # one -1 takes the ranks the others leave; axes "data" and "rays"
+    # Adam over one f32 vector holding every parameter (optax.flatten): the
+    # parameters and gradients become views into two flat buffers, and the
+    # norm, finite check, clip and all-reduce each act on the one gradient
+    flat_optimizer: bool = False
     mesh_shape: Tuple[int, ...] = (-1,)
     mesh_axes: Tuple[str, ...] = ("data",)
     # raise at the first NaN of a step instead of skipping the step

@@ -1,10 +1,16 @@
-"""Separable 4D convolution over flattened correlation volumes ("2d" fold).
+"""Separable 4D convolution over flattened correlation volumes.
 
-Counterpart of ``coponerf_tpu/models/conv4d.py`` with ``impl="2d"``: a
-Conv4d is a 2D conv over the query pair with the support pair folded into
-the batch, plus a 2D conv over the support pair with the query pair folded
-in, summed; a strided branch first max-pools the other pair (kernel =
-stride, ceil mode).  Volumes stay ``(B, L, Hq*Wq, Hs*Ws)``.
+Counterpart of ``coponerf_tpu/models/conv4d.py``: a Conv4d is a 2D conv
+over the query pair plus a 2D conv over the support pair, summed; a strided
+branch first max-pools the other pair (kernel = stride, ceil mode).
+Volumes stay ``(B, L, Hq*Wq, Hs*Ws)``.  Two formulations of the branches
+(``impl``, from ``ModelConfig.conv4d_impl``), the same numbers:
+  - ``"2d"``: the untouched pair folded into the batch of a ``conv2d``,
+    which takes a permute copy of the input and of the output a branch;
+  - ``"3d"``: one ``conv3d`` a branch straight on the flattened layout,
+    ``(B, L, hq, wq, Sq)`` with a ``(k0, k1, 1)`` kernel and ``(B, L, Qs,
+    hs, ws)`` with a ``(1, k2, k3)`` one: no copies.  The weights are the
+    same ``conv2d`` parameters, unsqueezed.
 """
 
 from __future__ import annotations
@@ -39,14 +45,18 @@ def maxpool_pair_flat(x: torch.Tensor, size: int, pair: str, qhw: Tuple[int, int
 
 
 class Conv4d(nn.Module):
-    def __init__(self, in_channels: int, out_channels: int, kernel_size, stride, padding, dtype: Optional[torch.dtype] = None):
+    def __init__(self, in_channels: int, out_channels: int, kernel_size, stride, padding,
+                 dtype: Optional[torch.dtype] = None, impl: str = "2d"):
         super().__init__()
+        if impl not in ("2d", "3d"):
+            raise ValueError(f"Conv4d impl must be '2d' or '3d', not {impl!r}")
         k, s, p = kernel_size, stride, padding
         self.query_conv = nn.Conv2d(in_channels, out_channels, (k[0], k[1]), (s[0], s[1]), (p[0], p[1]))
         self.supp_conv = nn.Conv2d(in_channels, out_channels, (k[2], k[3]), (s[2], s[3]), (p[2], p[3]))
         self.k, self.s = k, s
         self.out_channels = out_channels
         self.dtype = dtype
+        self.impl = impl
 
     def forward(self, x: torch.Tensor, qhw, shw):
         """x: (B, L, Hq*Wq, Hs*Ws) -> (B, L', Hq'*Wq', Hs'*Ws'), new dims."""
@@ -64,10 +74,19 @@ class Conv4d(nn.Module):
         Sq = xq_in.shape[-1]
         Qs = xs_in.shape[-2]
         O = self.out_channels
+        qc, sc = self.query_conv, self.supp_conv
+
+        if self.impl == "3d":
+            oq = F.conv3d(xq_in.reshape(B, L, hq, wq, Sq), qc.weight.to(dt)[..., None], qc.bias.to(dt),
+                          (*qc.stride, 1), (*qc.padding, 0))
+            os_ = F.conv3d(xs_in.reshape(B, L, Qs, hs, ws), sc.weight.to(dt)[:, :, None], sc.bias.to(dt),
+                           (1, *sc.stride), (0, *sc.padding))
+            hqo, wqo = oq.shape[2:4]
+            hso, wso = os_.shape[3:5]
+            return (oq.reshape(B, O, hqo * wqo, Sq) + os_.reshape(B, O, Qs, hso * wso)), (hqo, wqo), (hso, wso)
 
         xq = xq_in.reshape(B, L, hq, wq, Sq).permute(0, 4, 1, 2, 3).reshape(B * Sq, L, hq, wq)
         xs = xs_in.reshape(B, L, Qs, hs, ws).permute(0, 2, 1, 3, 4).reshape(B * Qs, L, hs, ws)
-        qc, sc = self.query_conv, self.supp_conv
         oq = F.conv2d(xq, qc.weight.to(dt), qc.bias.to(dt), qc.stride, qc.padding)
         os_ = F.conv2d(xs, sc.weight.to(dt), sc.bias.to(dt), sc.stride, sc.padding)
         hqo, wqo = oq.shape[2:]
@@ -80,11 +99,12 @@ class Conv4d(nn.Module):
 class Encoder4D(nn.Module):
     """N x (Conv4d -> GroupNorm -> ReLU) over a flattened volume."""
 
-    def __init__(self, corr_levels: Sequence[int], kernel_size, stride, padding, group: Sequence[int] = (1,), dtype: Optional[torch.dtype] = None):
+    def __init__(self, corr_levels: Sequence[int], kernel_size, stride, padding, group: Sequence[int] = (1,),
+                 dtype: Optional[torch.dtype] = None, impl: str = "2d"):
         super().__init__()
         self.n = len(kernel_size)
         for i, (k, s, p) in enumerate(zip(kernel_size, stride, padding)):
-            self.add_module(f"conv4d_{i}", Conv4d(corr_levels[i], corr_levels[i + 1], k, s, p, dtype))
+            self.add_module(f"conv4d_{i}", Conv4d(corr_levels[i], corr_levels[i + 1], k, s, p, dtype, impl))
             self.add_module(f"gn_{i}", GroupNormND(group[i], corr_levels[i + 1]))
 
     def forward(self, x, qhw, shw):

@@ -104,7 +104,8 @@ class CoPoNeRF(nn.Module):
         stage_hw = [image_size // 16, image_size // 8, image_size // 4]
         self.feature_cost_aggregation = UFC(
             stage_hw, nhead=c.corr_heads, layer_nums=tuple(c.ufc_layer_nums), dtype=ufc_dt,
-            remat=c.remat_ufc, fused_argmax=bool(c.fused_argmax),
+            remat=c.remat_ufc, fused_argmax=bool(c.fused_argmax), remat_policy=c.remat_policy,
+            conv4d_impl=c.conv4d_impl,
         )
         self.cross_attention = CrossBlock()
         self.pose_regressor = MLPSeq(2 * (256 + 6) * 256, (512, 256, 256), act_last=True)

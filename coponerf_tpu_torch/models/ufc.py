@@ -10,6 +10,15 @@ the dual softmax and the flow correlations stay f32, as in the JAX package.
 With ``remat`` each UFC layer runs under ``torch.utils.checkpoint`` while
 gradients are on (the JAX package's ``nn.remat``): its activations are
 recomputed in the backward instead of kept; the numbers are unchanged.
+``remat_policy="dots"`` keeps the outputs of the layer's matrix products
+(``mm``, ``bmm``, ``addmm``, ``baddbmm``) through the recompute and
+recomputes the rest, convolutions included (``dots_saveable``).
+``conv4d_impl`` picks the Conv4d formulation (``models/conv4d.py``).
+
+The last layer of the last stage skips its second correlation refinement
+(``refine_last_corr=False``): the refined volume it makes is read by no
+later line, so it only cost time (under ``jit`` XLA drops it in the JAX
+package).  Its parameters stay, so checkpoints keep their keys.
 """
 
 from __future__ import annotations
@@ -19,7 +28,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from coponerf_tpu_torch.models.conv4d import Encoder4D, encoder4d_args
 from coponerf_tpu_torch.models.layers import ConvNHWC, Dense, LayerNorm
@@ -30,6 +39,20 @@ from coponerf_tpu_torch.ops.correlation import (
 )
 from coponerf_tpu_torch.ops.resize import resize_bilinear
 from coponerf_tpu_torch.ops.soft_argmax import soft_argmax_both
+
+
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default,
+               torch.ops.aten.baddbmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def dots_saveable_context():
+    """The ``context_fn`` of ``checkpoint`` that keeps the matrix products'
+    outputs and recomputes everything else."""
+    return create_selective_checkpoint_contexts(_dots_saveable)
 
 
 def linear_attention(q, k, v, eps: float = 1e-6):
@@ -101,10 +124,11 @@ class UFCLayer(nn.Module):
     def __init__(self, feat_dim: int = 256, corr_size: int = 16, d_model: int = 256, nhead: int = 8,
                  expand_ratio: float = 4.0, feat_size: Tuple[int, int] = (16, 16),
                  feat_to_corr_kernel: int = 3, feat_to_corr_stride: int = 1,
-                 feat_to_corr_pad: int = 1, dtype: Optional[torch.dtype] = None):
+                 feat_to_corr_pad: int = 1, dtype: Optional[torch.dtype] = None, conv4d_impl: str = "2d"):
         super().__init__()
         h = nhead
         dt = dtype
+        e4d = dict(dtype=dt, impl=conv4d_impl)
         self.nhead, self.d_model, self.corr_size, self.feat_size = nhead, d_model, corr_size, feat_size
         self.dim = d_model // h
         cin = h * corr_size * corr_size + feat_dim  # [corr tokens || features]
@@ -112,15 +136,15 @@ class UFCLayer(nn.Module):
         self.q_proj = Dense(cin, d_model, dt)
         self.k_proj = Dense(cin, d_model, dt)
         self.v_proj = Dense(feat_dim, d_model, dt)
-        self.v_proj_corr = Encoder4D(**encoder4d_args((h, h), 3, 1, 1, (1,)), dtype=dt)
+        self.v_proj_corr = Encoder4D(**encoder4d_args((h, h), 3, 1, 1, (1,)), **e4d)
         self.mlp = TokenMLP(d_model, hidden, feat_size, dt)
-        self.mlp_corr = Encoder4D(**encoder4d_args((h, h * 4, h), 3, 1, 1, (1, 1)), dtype=dt)
+        self.mlp_corr = Encoder4D(**encoder4d_args((h, h * 4, h), 3, 1, 1, (1, 1)), **e4d)
         self.mlp_cross = TokenMLP(d_model, hidden, feat_size, dt)
-        self.mlp_refine_corr = Encoder4D(**encoder4d_args((h, h * 4, h), 3, 1, 1, (1, 1)), dtype=dt)
-        self.mlp_refine_corr2 = Encoder4D(**encoder4d_args((h, h * 4, h), 3, 1, 1, (1, 1)), dtype=dt)
+        self.mlp_refine_corr = Encoder4D(**encoder4d_args((h, h * 4, h), 3, 1, 1, (1, 1)), **e4d)
+        self.mlp_refine_corr2 = Encoder4D(**encoder4d_args((h, h * 4, h), 3, 1, 1, (1, 1)), **e4d)
         f2c = encoder4d_args((1, h), feat_to_corr_kernel, feat_to_corr_stride, feat_to_corr_pad, (1,))
-        self.feat_to_corr1 = Encoder4D(**f2c, dtype=dt)
-        self.feat_to_corr2 = Encoder4D(**f2c, dtype=dt)
+        self.feat_to_corr1 = Encoder4D(**f2c, **e4d)
+        self.feat_to_corr2 = Encoder4D(**f2c, **e4d)
         self.norm1 = LayerNorm(d_model, dt)
         self.norm2 = LayerNorm(d_model, dt)
         self.v_cross = Dense(d_model, d_model, dt)
@@ -200,19 +224,24 @@ class UFC(nn.Module):
                  nhead: int = 8, feat_dim: Sequence[int] = (256, 256, 256),
                  layer_nums: Sequence[int] = (2, 2, 1), f2c_kernel: Sequence[int] = (3, 3, 5),
                  f2c_stride: Sequence[int] = (1, 2, 4), f2c_pad: Sequence[int] = (1, 1, 2),
-                 dtype: Optional[torch.dtype] = None, remat: bool = False, fused_argmax: bool = False):
+                 dtype: Optional[torch.dtype] = None, remat: bool = False, fused_argmax: bool = False,
+                 remat_policy: str = "full", conv4d_impl: str = "2d"):
         super().__init__()
+        if remat_policy not in ("full", "dots"):
+            raise ValueError(f"remat_policy must be 'full' or 'dots', not {remat_policy!r}")
         self.stage_hw, self.nhead, self.feat_dim, self.layer_nums = list(stage_hw), nhead, feat_dim, layer_nums
-        self.remat, self.fused_argmax = remat, fused_argmax
+        self.remat, self.fused_argmax, self.remat_policy = remat, fused_argmax, remat_policy
         for s in range(3):
             for i in range(layer_nums[s]):
                 self.add_module(f"layers_{s}_{i}", UFCLayer(
                     feat_dim=feat_dim[s], corr_size=stage_hw[0], d_model=feat_dim[s], nhead=nhead,
                     feat_size=(stage_hw[s], stage_hw[s]), feat_to_corr_kernel=f2c_kernel[s],
                     feat_to_corr_stride=f2c_stride[s], feat_to_corr_pad=f2c_pad[s], dtype=dtype,
+                    conv4d_impl=conv4d_impl,
                 ))
             self.add_module(f"embedding_{s}", Encoder4D(
-                **encoder4d_args((1, nhead), f2c_kernel[s], f2c_stride[s], f2c_pad[s], (1,)), dtype=dtype))
+                **encoder4d_args((1, nhead), f2c_kernel[s], f2c_stride[s], f2c_pad[s], (1,)), dtype=dtype,
+                impl=conv4d_impl))
             self.add_module(f"proj_feat_{s}", Dense(in_dims[s], feat_dim[s], dtype))
 
     def forward(self, feats, nview: int = 2):
@@ -247,10 +276,13 @@ class UFC(nn.Module):
                 ft2 = interp_tokens(ft2_prev, (hw, hw)) + ft2
             for i in range(self.layer_nums[s]):
                 layer = getattr(self, f"layers_{s}_{i}")
+                # the last layer's refined volume would be read by no later line
+                refine = s < 2 or i < self.layer_nums[s] - 1
                 if self.remat and torch.is_grad_enabled():
-                    corr, ft2 = checkpoint(layer, corr, ft2, use_reentrant=False)
+                    extra = {"context_fn": dots_saveable_context} if self.remat_policy == "dots" else {}
+                    corr, ft2 = checkpoint(layer, corr, ft2, refine, use_reentrant=False, **extra)
                 else:
-                    corr, ft2 = layer(corr, ft2)
+                    corr, ft2 = layer(corr, ft2, refine)
             corr_res = corr
             ft2_prev = ft2
             src, trg = ft2[:B], ft2[B:]

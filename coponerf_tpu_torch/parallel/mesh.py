@@ -16,7 +16,8 @@ concatenated batch:
   - the masked means of the losses divide by the global mask sums
     (``training/losses.py``);
   - the gradients are averaged over every rank in one flat buffer
-    (``average_gradients``) before the norm, the finite check, the clip
+    (``average_gradients``; with ``flat_optimizer`` the gradient vector
+    itself) before the norm, the finite check, the clip
     and Adam, so every rank takes the same branch and the same update.
 
 Ranks lie on the mesh in row-major order, as ``make_mesh`` lays JAX's
@@ -205,8 +206,13 @@ def group_size(group) -> int:
 
 def average_gradients(mesh: Mesh, grads: Sequence[torch.Tensor]) -> None:
     """Replace each gradient by its mean over every rank, in place, through
-    one flat buffer (one all-reduce)."""
+    one flat buffer (one all-reduce).  One gradient (the flat optimizer's
+    vector) is reduced where it lies, with no copy."""
     if not grads:
+        return
+    if len(grads) == 1:
+        dist.all_reduce(grads[0])
+        grads[0].div_(mesh.world_size)
         return
     flat = torch.cat([g.reshape(-1) for g in grads])
     dist.all_reduce(flat)

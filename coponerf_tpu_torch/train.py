@@ -21,7 +21,15 @@ the run whole: weights, BatchNorm statistics, Adam's moments and the
 counters, and with them the learning rate.  Checkpoints,
 ``metrics.jsonl`` and the summaries go under
 ``<logging_root>/<experiment_name>/``.  ``--debug_nans`` raises at the
-first NaN of a step instead of skipping the step.
+first NaN of a step instead of skipping the step.  ``--flat_opt`` and
+``--ufc_scan`` mean what they mean to the JAX entry: Adam over one vector
+of every parameter (a ``.pt`` or ``.npz`` of either optimizer layout
+resumes it), and the scan layout of the UFC in the checkpoints.  The port's
+modules keep the loop layout (the math is the same), so that layout
+exists only in the JAX package's ``.npz``: ``--ufc_scan`` writes the
+checkpoints as such files (``utils/jax_checkpoint.py:save``, in the run's
+optimizer layout), which the JAX entry's ``--checkpoint_path`` resumes
+in a run of the same flags.
 
 ``--gpus N`` trains data-parallel on N ranks (``parallel/``): one process
 and one card a rank on NCCL, or with ``--device cpu`` N CPU processes on
@@ -87,6 +95,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "(use with --compute_dtype bfloat16)")
     p.add_argument("--no_remat", action="store_true", default=False,
                    help="keep the UFC activations instead of recomputing them in the backward")
+    p.add_argument("--flat_opt", action="store_true", default=False,
+                   help="Adam over one vector of every parameter (optax.flatten); a checkpoint keeps this "
+                        "optimizer layout, and a resume converts a file of the other")
+    p.add_argument("--ufc_scan", action="store_true", default=False,
+                   help="checkpoint the UFC in the JAX package's ufc_scan layout, which only its .npz has: the "
+                        "checkpoints are written as that .npz, not .pt (the modules and the math are the same)")
     p.add_argument("--seed", type=int, default=0, help="seed of the parameter fill")
     p.add_argument("--debug_nans", action="store_true", default=False,
                    help="raise at the first NaN of a step instead of skipping the step (slow: debugging only)")
@@ -171,11 +185,12 @@ def build_config(opt, image_size: int, steps_per_epoch: int):
     return Config(
         # the cyclic-consistency masks at the image's resolution (256 by default)
         model=ModelConfig(n_view=opt.views, compute_dtype=opt.compute_dtype, fast_sampling=opt.fast,
-                          remat_ufc=not opt.no_remat, mask_upsample=image_size),
+                          remat_ufc=not opt.no_remat, mask_upsample=image_size, ufc_scan=opt.ufc_scan),
         loss=LossConfig(pose=opt.pose, cycle=opt.cycle, ssim=opt.ssim),
         train=TrainConfig(lr=opt.lr, steps_til_summary=opt.steps_til_summary,
                           epochs_til_ckpt=opt.epochs_til_ckpt, iters_til_ckpt=opt.iters_til_ckpt,
-                          steps_per_epoch=steps_per_epoch, seed=opt.seed, debug_nans=opt.debug_nans),
+                          steps_per_epoch=steps_per_epoch, seed=opt.seed, debug_nans=opt.debug_nans,
+                          flat_optimizer=opt.flat_opt),
         logging_root=opt.logging_root,
         experiment_name=opt.experiment_name,
     )
@@ -199,7 +214,12 @@ def run(opt, cfg, device, batches, image_size: int, mesh=None) -> int:
             ckpt_lib.restore_into(state, opt.checkpoint_path)
             if lead:
                 print(f"Loaded {opt.checkpoint_path} at step {state.step}")
-        trainer.train(cfg, batches, num_steps=opt.max_steps, state=state, device=device, val_fn=val_fn, mesh=mesh)
+        if opt.ufc_scan:
+            from coponerf_tpu_torch.utils.jax_checkpoint import save
+        else:
+            save = ckpt_lib.save
+        trainer.train(cfg, batches, num_steps=opt.max_steps, state=state, device=device, val_fn=val_fn, mesh=mesh,
+                      save=save)
     finally:
         batches.close()     # stops the loader's worker processes
     return 0

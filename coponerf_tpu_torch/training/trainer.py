@@ -17,6 +17,18 @@ Counterpart of ``coponerf_tpu/training/trainer.py:35-275``:
     it as it would there.  Those zeros stay out of the norm, the finite
     check, the clip and the all-reduce, where they change nothing;
   - checkpoints at the JAX loop's cadences and a JSONL metric log;
+  - with ``TrainConfig.flat_optimizer`` (``optax.flatten``) every
+    parameter is a view into one f32 vector and its gradient a view into
+    another (``training/optim.py:FlatParameters``): one Adam parameter
+    holds the vector, the step zeroes the gradient vector in place before
+    its backward, and the norm, the finite check, the clip and the
+    all-reduce each act on that one vector, with no concatenation and no
+    copy back.  A parameter no
+    loss reaches keeps zeros in its slice, as in optax.  The math is the
+    per-leaf step's but for the order of the norm's sums.  Whatever
+    rebinds a parameter's ``.data`` (``Module.to``, ``load_state_dict(...,
+    assign=True)``) cuts it from the vector: the port copies into
+    parameters in place instead;
   - with ``TrainConfig.debug_nans`` the step raises ``FloatingPointError``
     at the first module whose output holds a NaN, and autograd's anomaly
     mode at the first backward operation that makes one, instead of
@@ -52,6 +64,7 @@ from coponerf_tpu_torch.parallel.mesh import (Mesh, attach_batch_norm, average_g
                                               rank0_done, replicate, wait_for_rank0)
 from coponerf_tpu_torch.training import checkpoint as ckpt_lib
 from coponerf_tpu_torch.training.losses import lf_loss
+from coponerf_tpu_torch.training.optim import FlatParameters
 from coponerf_tpu_torch.utils.init import init_weights
 
 
@@ -63,20 +76,25 @@ class TrainState:
     updates: int = 0            # optimizer updates applied (Adam's count)
     notfinite_count: int = 0    # consecutive skipped steps
     total_notfinite: int = 0    # all skipped steps
+    flat: Optional[FlatParameters] = None   # with TrainConfig.flat_optimizer
 
 
-def make_optimizer(model: torch.nn.Module, cfg: Config) -> torch.optim.Adam:
+def make_optimizer(model: torch.nn.Module, cfg: Config, flat: Optional[FlatParameters] = None) -> torch.optim.Adam:
     """One Adam group over every parameter (the reference's encoder/decoder
-    split is inert).  The learning rate is set before each update."""
-    return torch.optim.Adam(model.parameters(), lr=cfg.train.lr, betas=(0.9, 0.999), eps=1e-8)
+    split is inert), or over ``flat``'s one vector.  The learning rate is
+    set before each update."""
+    params = [flat.param] if flat is not None else model.parameters()
+    return torch.optim.Adam(params, lr=cfg.train.lr, betas=(0.9, 0.999), eps=1e-8)
 
 
 def create_train_state(cfg: Config, image_size: int, device, model: Optional[CoPoNeRF] = None) -> TrainState:
-    """A fresh state: ``model`` or a seeded one (``cfg.train.seed``) on ``device``."""
+    """A fresh state: ``model`` or a seeded one (``cfg.train.seed``) on
+    ``device``; its parameters flattened with ``cfg.train.flat_optimizer``."""
     if model is None:
         model = init_weights(CoPoNeRF(cfg.model, image_size=image_size), seed=cfg.train.seed)
     model = model.to(device)
-    return TrainState(model=model, optimizer=make_optimizer(model, cfg))
+    flat = FlatParameters(model) if cfg.train.flat_optimizer else None
+    return TrainState(model=model, optimizer=make_optimizer(model, cfg, flat), flat=flat)
 
 
 def learning_rate(cfg: Config, updates: int) -> float:
@@ -131,16 +149,19 @@ def train_step(state: TrainState, batch: Dict[str, Any], cfg: Config,
     of the global batch, every rank of the mesh takes the step together,
     and the metrics are the global batch's.  Under ``cfg.train.debug_nans``
     a NaN in the forward or the backward raises (``nan_checks``)."""
-    model, opt = state.model, state.optimizer
+    model, opt, flat = state.model, state.optimizer, state.flat
     if mesh is not None:
         attach_batch_norm(model, mesh)
     with nan_checks(model) if cfg.train.debug_nans else contextlib.nullcontext():
         out = model(batch, val=False, train=True)
         losses, _ = lf_loss(cfg.loss, batch, out, batch["query"], mesh=mesh)
         total = sum(losses.values())
-        opt.zero_grad(set_to_none=True)
+        if flat is None:
+            opt.zero_grad(set_to_none=True)
+        else:
+            flat.zero_grad()
         total.backward()
-    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    grads = [p.grad for p in model.parameters() if p.grad is not None] if flat is None else [flat.grad]
     if mesh is not None:
         average_gradients(mesh, grads)
     norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
@@ -150,7 +171,7 @@ def train_step(state: TrainState, batch: Dict[str, Any], cfg: Config,
         if norm.item() >= max_norm:
             for g in grads:
                 g.div_(norm).mul_(max_norm)
-        for p in model.parameters():
+        for p in (model.parameters() if flat is None else ()):
             if p.grad is None:      # no loss reaches it: optax's zero gradient
                 p.grad = torch.zeros_like(p)
         for group in opt.param_groups:
@@ -161,7 +182,8 @@ def train_step(state: TrainState, batch: Dict[str, Any], cfg: Config,
     else:
         state.notfinite_count += 1
         state.total_notfinite += 1
-    opt.zero_grad(set_to_none=True)
+    if flat is None:
+        opt.zero_grad(set_to_none=True)
     state.step += 1
     metrics = {k: v.detach() for k, v in losses.items()}
     metrics["total_train_loss"] = total.detach()
@@ -219,11 +241,14 @@ class MetricLogger:
 
 
 def train(cfg: Config, batches: Iterable, num_steps: int, state: TrainState, device,
-          log_every: int = 10, val_fn: Optional[Callable] = None, mesh: Optional[Mesh] = None) -> TrainState:
+          log_every: int = 10, val_fn: Optional[Callable] = None, mesh: Optional[Mesh] = None,
+          save: Callable = ckpt_lib.save) -> TrainState:
     """Run ``num_steps`` steps over ``batches`` (numpy batches in the
     ``data.synthetic.make_batch`` schema, cycled if exhausted), logging to
     ``<logging_root>/<experiment_name>/summaries`` and checkpointing to
-    ``.../checkpoints`` at the JAX loop's cadences; returns the state.
+    ``.../checkpoints`` at the JAX loop's cadences with ``save(dir, state,
+    step, name=None)`` (a ``.pt``, or ``utils/jax_checkpoint.py:save``'s
+    JAX ``.npz``); returns the state.
     ``val_fn(state, step, logger)`` (``training/validation.py``) runs every
     ``steps_til_summary`` steps, after the rolling ``model_current``
     checkpoint.
@@ -271,17 +296,17 @@ def train(cfg: Config, batches: Iterable, num_steps: int, state: TrainState, dev
                     metrics["steps_per_sec"] = (step + 1) / (time.time() - t0)
                     logger.log(step, metrics)
                 if iters:
-                    ckpt_lib.save(ckpt_dir, state, step)
+                    save(ckpt_dir, state, step)
                 if epoch:
-                    ckpt_lib.save(ckpt_dir, state, step, name=f"model_epoch_{step // steps_per_epoch:04d}")
+                    save(ckpt_dir, state, step, name=f"model_epoch_{step // steps_per_epoch:04d}")
                 if summary:
-                    ckpt_lib.save(ckpt_dir, state, step, name="model_current")
+                    save(ckpt_dir, state, step, name="model_current")
                     if val_fn is not None:
                         val_fn(state, step, logger)
             if iters or epoch or summary:
                 rank0_work_done()
         if lead:
-            ckpt_lib.save(ckpt_dir, state, num_steps, name="model_final")
+            save(ckpt_dir, state, num_steps, name="model_final")
         rank0_work_done()
     finally:
         if logger is not None:

@@ -37,9 +37,10 @@ left over or missing, or Adam's count unequal to the schedule's raise
 ``ValueError`` and leave the state as it was (the JAX package's
 ``restore_into`` drops an optimizer state whose leaf count differs).  A
 file without ``__opt__`` leaves restores the weights and ``step`` and
-starts Adam fresh, as the JAX package does.  ``save`` writes the JAX
-package's default layout (loop UFC, per-leaf optimizer state), which its
-own ``restore_into`` takes.
+starts Adam fresh, as the JAX package does.  Any layout restores into a
+port state of either optimizer layout.  ``save`` writes the layout of the
+state's configuration (``ufc_scan``, ``flat_optimizer``), which the JAX
+package's ``restore_into`` takes into a state of the same configuration.
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ from typing import Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from coponerf_tpu_torch.training.optim import adam_state, load_adam_state
 from coponerf_tpu_torch.utils.convert import convert, to_flax
 
 Path = Tuple[str, ...]
@@ -185,15 +187,6 @@ def _moments(path: str, variables: Mapping[Path, np.ndarray], opt: List[np.ndarr
     return out[0], out[1], count, notfinite, total
 
 
-def _named_indices(state) -> Dict[str, int]:
-    """{parameter name: its index in the optimizer's ``state_dict``}."""
-    index = {}
-    for group_sd, group in zip(state.optimizer.state_dict()["param_groups"], state.optimizer.param_groups):
-        for i, p in zip(group_sd["params"], group["params"]):
-            index[id(p)] = i
-    return {k: index[id(p)] for k, p in state.model.named_parameters()}
-
-
 def load_weights(model, path: str):
     """Load a JAX ``.npz``'s weights and BatchNorm statistics into ``model``
     (strict, checked before anything is loaded) and return it."""
@@ -216,42 +209,64 @@ def restore_into(state, path: str):
         print(f"{path} holds no optimizer state: weights and step {step} restored, Adam starts fresh")
         return state
     mu, nu, count, notfinite, total = _moments(path, variables, opt, state.model)
-    opt_sd = state.optimizer.state_dict()
-    opt_sd["state"] = {i: {"step": torch.tensor(float(count)), "exp_avg": mu[k], "exp_avg_sq": nu[k]}
-                       for k, i in _named_indices(state).items()}
     state.model.load_state_dict(sd, strict=True)
-    state.optimizer.load_state_dict(opt_sd)
+    load_adam_state(state, {k: (mu[k], nu[k]) for k in mu}, count)
     state.step, state.updates, state.notfinite_count, state.total_notfinite = step, count, notfinite, total
     return state
 
 
+def stack_ufc_params(ufc_params: Mapping, layer_nums: Tuple[int, ...]) -> dict:
+    """Loop-layout UFC subtree -> scan layout: ``layers_{s}_{i}/X`` for
+    i < n -> ``layers_{s}/layer/X`` stacked on a leading axis of n (other
+    keys pass through).  The numpy copy of ``coponerf_tpu/models/ufc.py:493``."""
+    out = {k: v for k, v in ufc_params.items() if not k.startswith("layers_")}
+    for s, n in enumerate(layer_nums):
+        per_layer = [_flatten(ufc_params[f"layers_{s}_{i}"]) for i in range(n)]
+        out[f"layers_{s}"] = {"layer": _unflatten({p: np.stack([d[p] for d in per_layer]) for p in per_layer[0]})}
+    return out
+
+
 def save(ckpt_dir: str, state, step: int, name: Optional[str] = None) -> str:
     """Write ``state`` to ``<ckpt_dir>/<name or model_step_XXXXXXXX>.npz``
-    in the JAX package's default layout (loop UFC, per-leaf optimizer
-    state; int32 counters, bool ``last_finite``).  ``step`` names the
-    file; ``__step__`` is ``state.step``.  A parameter without Adam state
-    (no update has reached it) writes zero moments; one whose Adam step is
+    in the layout the JAX package writes for the state's configuration:
+    the UFC in the scan layout where the model's ``ufc_scan`` is on (the
+    moments too), and Adam's ``mu`` and ``nu`` as one vector each (the
+    sorted leaves raveled) where the state has a flat optimizer; int32
+    counters and a bool ``last_finite``.  ``step`` names the file;
+    ``__step__`` is ``state.step``.  A parameter without Adam state (no
+    update has reached it) writes zero moments; one whose Adam step is
     not ``state.updates`` raises, since the file keeps one count for all."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, (name or f"model_step_{step:08d}") + ".npz")
-    flat: Dict[str, np.ndarray] = {}
+    mcfg = state.model.cfg
+
+    def layout(tree: Mapping) -> dict:
+        if mcfg.ufc_scan and UFC in tree:
+            return {**tree, UFC: stack_ufc_params(tree[UFC], tuple(mcfg.ufc_layer_nums))}
+        return dict(tree)
+
+    variables, mu, nu = {}, {}, {}
     for key, t in state.model.state_dict().items():
         fpath, arr = to_flax(key, t.detach().cpu().numpy())
-        flat["/".join(fpath)] = arr
-    flat["__step__"] = np.asarray(state.step)
-    moments = {}
+        variables[fpath] = arr
+    adam = adam_state(state)
     for key, p in state.model.named_parameters():
-        st = state.optimizer.state.get(p, {})
+        st = adam[key]
         if st and int(st["step"]) != state.updates:
             raise ValueError(f"{key}: Adam step {int(st['step'])}, but {state.updates} updates applied")
-        fpath, mu = to_flax(key, st["exp_avg"].cpu().numpy() if st else np.zeros(tuple(p.shape), np.float32))
-        _, nu = to_flax(key, st["exp_avg_sq"].cpu().numpy() if st else np.zeros(tuple(p.shape), np.float32))
-        moments[fpath] = (mu, nu)
-    order = sorted(moments)                 # tree_leaves order of params
+        fpath, mu[fpath[1:]] = to_flax(key, st["exp_avg"].cpu().numpy() if st else np.zeros(tuple(p.shape), np.float32))
+        _, nu[fpath[1:]] = to_flax(key, st["exp_avg_sq"].cpu().numpy() if st else np.zeros(tuple(p.shape), np.float32))
+    tree = _unflatten(variables)
+    flat = {"/".join(p): v for p, v in _flatten({c: layout(t) for c, t in tree.items()}).items()}
+    flat["__step__"] = np.asarray(state.step)
+    moments = []
+    for m in (mu, nu):
+        leaves = _flatten(layout(_unflatten(m)))
+        ordered = [leaves[p] for p in sorted(leaves)]         # tree_leaves order of params
+        moments.append([np.concatenate([x.reshape(-1) for x in ordered])] if state.flat is not None else ordered)
     count = np.asarray(state.updates, np.int32)
     leaves = [np.asarray(state.notfinite_count, np.int32), np.asarray(state.notfinite_count == 0),
-              np.asarray(state.total_notfinite, np.int32), count,
-              *(moments[p][0] for p in order), *(moments[p][1] for p in order), count]
+              np.asarray(state.total_notfinite, np.int32), count, *moments[0], *moments[1], count]
     for i, leaf in enumerate(leaves):
         flat[f"{OPT_PREFIX}{i:05d}"] = leaf
     tmp = path + ".tmp"

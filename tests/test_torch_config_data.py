@@ -37,3 +37,24 @@ def test_make_batch_matches_jax(kw):
             assert got[part][k].dtype == ref[part][k].dtype, (part, k)
             np.testing.assert_array_equal(got[part][k], ref[part][k], err_msg=f"{part}/{k}")
     assert got_gt.keys() == ref_gt.keys()
+
+
+def test_formulation_fields_build_with_jax_names_and_defaults():
+    """The train step's four formulations: ``conv4d_impl``, ``remat_policy``
+    and ``ufc_scan`` on ``ModelConfig``, ``flat_optimizer`` on
+    ``TrainConfig``, each with the JAX field's default; each non-default
+    value builds, and a value outside the two a field takes raises."""
+    for cls, names in (("ModelConfig", ("conv4d_impl", "remat_policy", "ufc_scan")),
+                       ("TrainConfig", ("flat_optimizer",))):
+        port = {f.name: f.default for f in dataclasses.fields(getattr(tconfig, cls))}
+        ref = {f.name: f.default for f in dataclasses.fields(getattr(jconfig, cls))}
+        for name in names:
+            assert name in port and port[name] == ref[name], (cls, name)
+    assert tconfig.ModelConfig(conv4d_impl="3d").conv4d_impl == "3d"
+    assert tconfig.ModelConfig(remat_policy="dots").remat_policy == "dots"
+    assert tconfig.ModelConfig(ufc_scan=True).ufc_scan
+    assert tconfig.TrainConfig(flat_optimizer=True).flat_optimizer
+    with pytest.raises(ValueError, match="conv4d_impl"):
+        tconfig.ModelConfig(conv4d_impl="3D")
+    with pytest.raises(ValueError, match="remat_policy"):
+        dataclasses.replace(tconfig.ModelConfig(), remat_policy="nothing")

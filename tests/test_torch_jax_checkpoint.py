@@ -29,6 +29,7 @@ parameters all the same, most in the pose head: each file is about
 theirs one at a time, member by member, from one source file).
 """
 
+import dataclasses
 import os
 import shutil
 import types
@@ -49,7 +50,7 @@ from coponerf_tpu.training.trainer import TrainState, make_optimizer
 from coponerf_tpu_torch.config import Config, ModelConfig, TrainConfig
 from coponerf_tpu_torch.models import CoPoNeRF
 from coponerf_tpu_torch.training import checkpoint as ckpt_lib
-from coponerf_tpu_torch.training import trainer
+from coponerf_tpu_torch.training import optim, trainer
 from coponerf_tpu_torch.utils import jax_checkpoint
 from coponerf_tpu_torch.utils.convert import convert, flax_path
 from torch_step_helpers import IMG, LR, jax_model_and_batch, leaf, to_flax_layout
@@ -117,14 +118,16 @@ def jax_moments_loop_layout(state, scan, flat):
 
 
 def assert_port_holds(tstate, params, batch_stats, mu, nu, count):
-    """The port's state against loop-layout trees, bit for bit."""
+    """The port's state (either optimizer layout) against loop-layout
+    trees, bit for bit."""
     variables = {"params": params, "batch_stats": batch_stats}
     for key, t in tstate.model.state_dict().items():
         path, _ = flax_path(key, tuple(t.shape))
         np.testing.assert_array_equal(to_flax_layout(key, t.numpy()), leaf(variables, path), err_msg=key)
+    adam = optim.adam_state(tstate)
     for key, p in tstate.model.named_parameters():
         path, _ = flax_path(key, tuple(p.shape))
-        st = tstate.optimizer.state[p]
+        st = adam[key]
         np.testing.assert_array_equal(to_flax_layout(key, st["exp_avg"].numpy()), leaf(mu, path[1:]), err_msg=key)
         np.testing.assert_array_equal(to_flax_layout(key, st["exp_avg_sq"].numpy()), leaf(nu, path[1:]),
                                       err_msg=key)
@@ -197,6 +200,52 @@ def test_jax_restores_a_port_checkpoint_bit_for_bit(layout_variables, tmp_path):
         assert isinstance(leaf_, jax.Array)
     assert_port_holds(tstate, jax.device_get(got.params), jax.device_get(got.batch_stats), jax.device_get(adam.mu),
                       jax.device_get(adam.nu), COUNT)
+
+
+@pytest.mark.parametrize("scan, flat", [(False, True), (True, False), (True, True)],
+                         ids=["flat_optimizer", "ufc_scan", "ufc_scan_flat_optimizer"])
+def test_port_writes_each_jax_layout_and_reads_it_back(layout_variables, scan, flat, tmp_path):
+    """A port state of the configuration (``ufc_scan``, ``flat_optimizer``)
+    with seeded Adam state, written by the port's ``save`` in that
+    configuration's layout; JAX's ``restore_into`` takes it into a JAX
+    state of the same configuration, whose trees (unstacked and unraveled
+    by JAX's own functions) hold the port's values bit for bit; the port
+    reads the file back into a fresh state of the configuration bit for
+    bit."""
+    from coponerf_tpu_torch.utils.init import init_weights
+
+    base = port_cfg(dict(LAYOUT_MODEL, ufc_scan=scan))
+    cfg = dataclasses.replace(base, train=dataclasses.replace(base.train, flat_optimizer=flat))
+    tstate = trainer.create_train_state(cfg, IMG, "cpu", model=init_weights(CoPoNeRF(cfg.model, image_size=IMG),
+                                                                             seed=3))
+    assert (tstate.flat is not None) == flat
+    named = list(tstate.model.named_parameters())
+    mu, nu = seeded_moments([tuple(p.shape) for _, p in named], seed=6 + scan + 2 * flat)
+    optim.load_adam_state(tstate, {k: (torch.from_numpy(m), torch.from_numpy(v))
+                                     for (k, _), m, v in zip(named, mu, nu)}, COUNT)
+    tstate.step, tstate.updates, tstate.notfinite_count, tstate.total_notfinite = STEP, COUNT, NOTFINITE, TOTAL
+    path = jax_checkpoint.save(str(tmp_path), tstate, step=STEP)
+    try:
+        target = jax_state(layout_variables, scan, flat, LAYOUT_MODEL)
+        n = len(jax.tree_util.tree_leaves(target.params))
+        assert len(jckpt.load(path)[2]) == (7 if flat else 2 * n + 5)
+        got = jckpt.restore_into(target, path)
+        back = ckpt_lib.restore_into(fresh_port_state(cfg), path)
+    finally:
+        os.remove(path)
+    assert int(got.step) == STEP
+    assert jax.tree_util.tree_structure(got.opt_state) == jax.tree_util.tree_structure(target.opt_state)
+    assert jax.tree_util.tree_structure(got.params) == jax.tree_util.tree_structure(target.params)
+    fin = got.opt_state
+    assert (int(fin.notfinite_count), bool(fin.last_finite), int(fin.total_notfinite)) == (NOTFINITE, False, TOTAL)
+    params = jax.device_get(got.params)
+    if scan:
+        params = {**params, UFC: unstack_ufc_params(params[UFC], LAYERS)}
+    jmu, jnu = jax_moments_loop_layout(got, scan, flat)
+    assert_port_holds(tstate, params, jax.device_get(got.batch_stats), jmu, jnu, COUNT)
+    assert (back.flat is not None) == flat
+    assert (back.step, back.updates, back.notfinite_count, back.total_notfinite) == (STEP, COUNT, NOTFINITE, TOTAL)
+    assert_port_holds(back, params, jax.device_get(got.batch_stats), jmu, jnu, COUNT)
 
 
 def _rewrite(src, dst, drop=(), put=None):

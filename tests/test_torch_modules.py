@@ -135,3 +135,81 @@ def test_resnet_fc_matches_jax():
     ref = jm.apply({"params": params}, jnp.asarray(zx))
     got = _port(ResnetFC(d_in=18, d_latent=64, d_hidden=32), {"params": params})(torch.from_numpy(zx))
     np.testing.assert_allclose(_np(got), _np(ref), **TOL)
+
+
+def _refine_every_layer(monkeypatch):
+    """Make every UFC layer refine its volume a second time, as the port
+    did before the last layer skipped it."""
+    forward = UFCLayer.forward
+    monkeypatch.setattr(UFCLayer, "forward", lambda self, corr, feat2, refine_last_corr=True:
+                        forward(self, corr, feat2, True))
+
+
+def test_ufc_layer_refine_flag_changes_only_the_volume():
+    """``refine_last_corr=False`` skips ``feat_to_corr2`` and
+    ``mlp_refine_corr2``: the features come out bit for bit, the volume
+    without the second refinement, as JAX's layer with the flag off."""
+    rng = np.random.RandomState(5)
+    kw = dict(feat_dim=32, corr_size=4, d_model=32, nhead=4, feat_size=(8, 8),
+              feat_to_corr_kernel=3, feat_to_corr_stride=2, feat_to_corr_pad=1)
+    corr = rng.randn(1, 4, 16, 16).astype(np.float32) * 0.3
+    feat2 = rng.randn(2, 64, 32).astype(np.float32)
+    jm = JaxUFCLayer(**kw)
+    variables = jm.init(jax.random.PRNGKey(5), jnp.asarray(corr), jnp.asarray(feat2))
+    layer = _port(UFCLayer(**kw), variables)
+    with torch.no_grad():
+        on = layer(torch.from_numpy(corr), torch.from_numpy(feat2), True)
+        off = layer(torch.from_numpy(corr), torch.from_numpy(feat2), False)
+    assert torch.equal(on[1], off[1])
+    assert not torch.equal(on[0], off[0])
+    ref = jm.apply(variables, jnp.asarray(corr), jnp.asarray(feat2), False)
+    for a, b in zip(off, ref):
+        np.testing.assert_allclose(_np(a), _np(b), **TOL)
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["exact", "fast"])
+def test_last_layer_skips_its_dead_refinement_bit_for_bit(fast, monkeypatch):
+    """Skipping the last UFC layer's second refinement changes no number: a
+    narrow model's eval ``encode()`` and its train-mode losses and
+    gradients are bit for bit those of the model that refines in every
+    layer (fast config: bf16 and UFC remat), and the same 18 parameters, the
+    last layer's ``feat_to_corr2`` and ``mlp_refine_corr2``, get no
+    gradient."""
+    from coponerf_tpu_torch.config import LossConfig
+    from coponerf_tpu_torch.models import batch_to_torch
+    from coponerf_tpu_torch.training.losses import lf_loss
+    from coponerf_tpu_torch.utils.init import init_weights
+
+    kw = dict(mask_upsample=32, npoints=4, ufc_layer_nums=(1, 1, 1))
+    if fast:
+        kw.update(fast_sampling=True, compute_dtype="bfloat16")
+    cfg = ModelConfig(**kw)
+    weights = init_weights(CoPoNeRF(cfg, image_size=32), seed=4).state_dict()
+    batch_np, _ = make_batch(batch_size=2, image_size=32, n_rays=16, seed=4)
+    runs = {}
+    for every_layer in (False, True):
+        with monkeypatch.context() as m:
+            if every_layer:
+                _refine_every_layer(m)
+            model = CoPoNeRF(cfg, image_size=32)
+            model.load_state_dict(weights)
+            tb = batch_to_torch(batch_np, "cpu")
+            with torch.no_grad():
+                state = model.eval().encode(tb)
+            model.train()
+            out = model(tb, val=False, train=True)
+            losses, _ = lf_loss(LossConfig(pose=True, cycle=True, ssim=True), tb, out, tb["query"])
+            sum(losses.values()).backward()
+            runs[every_layer] = (state, losses, {k: p.grad for k, p in model.named_parameters()})
+    (s0, l0, g0), (s1, l1, g1) = runs[False], runs[True]
+    for a, b in zip((s0.rel_pose, *s0.flows, *s0.z), (s1.rel_pose, *s1.flows, *s1.z)):
+        assert torch.equal(a, b)
+    assert l0.keys() == l1.keys() and all(torch.equal(l0[k], l1[k]) for k in l0)
+    gradless = sorted(k for k, g in g0.items() if g is None)
+    assert gradless == sorted(k for k, g in g1.items() if g is None)
+    assert len(gradless) == 18
+    assert all(k.startswith(("feature_cost_aggregation.layers_2_0.feat_to_corr2.",
+                             "feature_cost_aggregation.layers_2_0.mlp_refine_corr2.")) for k in gradless)
+    for k, g in g0.items():
+        if g is not None:
+            assert torch.equal(g, g1[k]), k

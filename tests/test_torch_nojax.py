@@ -1,6 +1,8 @@
 """The port runs without JAX: an inference render (also with both
 ``render(fusion=...)`` options), a train step, the latter also with
-``fused_argmax=True``, the evaluation layer (harness, metrics, LPIPS,
+``fused_argmax=True``, and one with ``conv4d_impl="3d"``,
+``remat_policy="dots"`` and the flat optimizer, written and read back as
+a ``ufc_scan`` + ``flat_optimizer`` ``.npz``, the evaluation layer (harness, metrics, LPIPS,
 overlap, scene readers, the native scene cache, loader, the ``test``
 entry), a camera path, in-training validation with its summaries, the
 ``.pth`` import, the JAX ``.npz`` writer and reader, the ``train`` and
@@ -111,6 +113,18 @@ fcfg = dataclasses.replace(tcfg, model=dataclasses.replace(cfg, fused_argmax=Tru
 fstate = trainer.create_train_state(fcfg, 32, "cpu", model=init_weights(CoPoNeRF(fcfg.model, image_size=32), seed=0))
 metrics = trainer.train_step(fstate, batch_to_torch(make_batch(batch_size=2, image_size=32, n_rays=8, seed=1)[0], "cpu"), fcfg)
 assert fstate.updates == 1 and all(torch.isfinite(v) for v in metrics.values())
+xcfg = dataclasses.replace(tcfg, model=dataclasses.replace(cfg, conv4d_impl="3d", remat_policy="dots", ufc_scan=True),
+                           train=dataclasses.replace(tcfg.train, flat_optimizer=True))
+xstate = trainer.create_train_state(xcfg, 32, "cpu", model=init_weights(CoPoNeRF(xcfg.model, image_size=32), seed=0))
+metrics = trainer.train_step(xstate, batch_to_torch(make_batch(batch_size=2, image_size=32, n_rays=8, seed=1)[0], "cpu"), xcfg)
+assert xstate.updates == 1 and all(torch.isfinite(v) for v in metrics.values())
+with tempfile.TemporaryDirectory() as d:
+    path = jax_checkpoint.save(d, xstate, step=1)
+    del xstate
+    back = trainer.create_train_state(xcfg, 32, "cpu", model=CoPoNeRF(xcfg.model, image_size=32))
+    jax_checkpoint.restore_into(back, path)
+    assert back.updates == 1 and back.flat is not None
+    del back
 import coponerf_tpu_torch.parallel
 from coponerf_tpu_torch.parallel import launch, mesh as pmesh, render as prender
 sys.path.insert(0, "tests")

@@ -48,6 +48,7 @@ def test_train_calls_val_fn_every_summary_interval(tmp_path):
 
     batches = [make_batch(batch_size=1, image_size=IMG, n_rays=8, seed=s)[0] for s in (1, 2)]
     trainer.train(cfg, batches, num_steps=3, state=state, device="cpu", val_fn=val_fn)
+    shutil.rmtree(tmp_path / "val" / "checkpoints")        # about 1.2 GB a file
     assert seen == [(1, 2), (2, 3)]
 
 
@@ -99,6 +100,7 @@ def test_train_entry_on_a_realestate_archive(tmp_path, monkeypatch):
     for term in ("val_img_loss", "val_ssim_loss", "val_cycle_loss", "val_pose_loss", "val_ent"):
         assert np.isfinite(val[term]), term
     ck = torch.load(run / "checkpoints" / "model_final.pt", weights_only=True)
+    shutil.rmtree(run / "checkpoints")
     assert ck["step"] == 2 and ck["updates"] + ck["total_notfinite"] == 2
 
 
@@ -127,6 +129,7 @@ def test_train_entry_with_a_synthetic_pool(tmp_path, monkeypatch):
     logged = [json.loads(line) for line in open(tmp_path / "pool" / "summaries" / "metrics.jsonl")]
     assert [row["step"] for row in logged] == [0] and np.isfinite(logged[0]["total_train_loss"])
     ck = torch.load(tmp_path / "pool" / "checkpoints" / "model_final.pt", weights_only=True)
+    shutil.rmtree(tmp_path / "pool" / "checkpoints")
     assert ck["step"] == 3
 
 
@@ -209,6 +212,8 @@ def test_train_entry_on_two_cpu_ranks_is_the_one_rank_run(tmp_path, monkeypatch)
     argv[argv.index("--max_steps") + 1] = "1"
     assert train_entry.main(argv) == 0
     resumed = torch.load(tmp_path / "resumed" / "checkpoints" / "model_final.pt", weights_only=True)
+    for name in ("gpus2", "gpus1", "resumed"):
+        shutil.rmtree(tmp_path / name / "checkpoints")
     assert resumed["step"] == resumed["updates"] == 3
 
 
@@ -243,6 +248,81 @@ def test_train_entry_resumes_from_a_jax_npz(tmp_path, monkeypatch):
     assert len(ck["optimizer"]["state"]) == len(list(src.model.parameters()))
     assert ck["optimizer"]["param_groups"][0]["lr"] == trainer.learning_rate(cfg, 7) == cfg.train.lr * 0.95 ** 2
     shutil.rmtree(tmp_path / "npz")         # about 1.2 GB
+
+
+def test_train_entry_with_flat_opt_and_ufc_scan(tmp_path, monkeypatch):
+    """``--flat_opt --ufc_scan``: two steps with Adam over one vector, the
+    checkpoints written as the JAX package's ``.npz`` in the ``ufc_scan`` +
+    ``flat_optimizer`` layout (7 optimizer leaves, the flat moments one
+    vector each, stacked UFC layers).  JAX's own ``restore_into`` takes the
+    entry's ``model_final.npz`` into a JAX state of that configuration
+    (its trees' structure, the counts, and every weight, unstacked by JAX's
+    ``unstack_ufc_params``, bit for bit the port's read of the file), and
+    a run resumed from the file takes one more step."""
+    import jax
+
+    from coponerf_tpu.config import Config as JConfig
+    from coponerf_tpu.config import ModelConfig as JModelConfig
+    from coponerf_tpu.config import TrainConfig as JTrainConfig
+    from coponerf_tpu.models.ufc import stack_ufc_params, unstack_ufc_params
+    from coponerf_tpu.training import checkpoint as jckpt
+    from coponerf_tpu.training.trainer import TrainState, make_optimizer
+    from coponerf_tpu_torch.utils import jax_checkpoint
+    from coponerf_tpu_torch.utils.convert import flax_path, to_flax
+    from torch_step_helpers import leaf, to_flax_layout
+
+    layers = (2, 1, 1)
+    monkeypatch.setattr(tconfig, "ModelConfig", lambda **kw: ModelConfig(**kw, npoints=4, ufc_layer_nums=layers))
+    argv = _synthetic_argv(tmp_path, "flat", 1, batch_size=1) + ["--flat_opt", "--ufc_scan"]
+    assert train_entry.main(argv) == 0
+    assert sorted(os.listdir(tmp_path / "flat" / "checkpoints")) == ["model_final.npz"]
+    npz = str(tmp_path / "flat" / "checkpoints" / "model_final.npz")
+    cfg = train_entry.build_config(train_entry.build_parser().parse_args(argv), IMG, 0)
+    assert cfg.train.flat_optimizer and cfg.model.ufc_scan
+    try:
+        port = ckpt_lib.restore_into(trainer.create_train_state(cfg, IMG, "cpu"), npz)
+        n_values = port.flat.param.numel()
+        with np.load(npz) as data:
+            opt_keys = [k for k in data.files if k.startswith("__opt__/")]
+            assert len(opt_keys) == 7 and data["__opt__/00004"].shape == (n_values,)
+            assert "params/feature_cost_aggregation/layers_0/layer/q_proj/Dense_0/kernel" in data.files
+            assert not any("layers_0_0" in k for k in data.files)
+        # a JAX state of the configuration, its structure from the port's model
+        variables = {}
+        for key, t in port.model.state_dict().items():
+            path, arr = to_flax(key, t.numpy())
+            node = variables
+            for part in path[:-1]:
+                node = node.setdefault(part, {})
+            node[path[-1]] = arr
+        params = {**variables["params"], "feature_cost_aggregation": stack_ufc_params(
+            variables["params"]["feature_cost_aggregation"], layers)}
+        jcfg = JConfig(model=JModelConfig(npoints=4, ufc_layer_nums=layers, ufc_scan=True),
+                       train=JTrainConfig(flat_optimizer=True))
+        target = TrainState.create(apply_fn=None, params=params, batch_stats=variables["batch_stats"],
+                                   tx=make_optimizer(jcfg, steps_per_epoch=100))
+        got = jckpt.restore_into(target, npz)
+        assert jax.tree_util.tree_structure(got.params) == jax.tree_util.tree_structure(target.params)
+        assert jax.tree_util.tree_structure(got.opt_state) == jax.tree_util.tree_structure(target.opt_state)
+        assert int(got.step) == port.step == port.updates == 2
+        assert int(got.opt_state.inner_state[1][0].count) == 2
+        restored = {"params": dict(jax.device_get(got.params)), "batch_stats": jax.device_get(got.batch_stats)}
+        restored["params"]["feature_cost_aggregation"] = unstack_ufc_params(
+            restored["params"]["feature_cost_aggregation"], layers)
+        for key, t in port.model.state_dict().items():
+            path, _ = flax_path(key, tuple(t.shape))
+            np.testing.assert_array_equal(to_flax_layout(key, t.numpy()), leaf(restored, path), err_msg=key)
+        del got, target, restored, variables, params, port
+        argv = _synthetic_argv(tmp_path, "resumed", 1, batch_size=1) + ["--flat_opt", "--ufc_scan",
+                                                                         "--checkpoint_path", npz]
+        argv[argv.index("--max_steps") + 1] = "1"
+        assert train_entry.main(argv) == 0
+    finally:
+        shutil.rmtree(tmp_path / "flat")        # each file about 1.2 GB: one on the disk at a time
+    resumed = jax_checkpoint.restore_into(trainer.create_train_state(cfg, IMG, "cpu"),
+                                          str(tmp_path / "resumed" / "checkpoints" / "model_final.npz"))
+    shutil.rmtree(tmp_path / "resumed")
+    assert resumed.step == resumed.updates == 3
 
 
 def test_train_entry_refuses_more_ranks_than_cards_or_an_uneven_batch(tmp_path, monkeypatch):

@@ -125,6 +125,7 @@ def test_resume_is_bit_exact(tmp_path):
         trainer.train_step(run, b, cfg)
     path = ckpt_lib.save(str(tmp_path), run, step=run.step)
     resumed = ckpt_lib.restore_into(_state(cfg, seed=1), path)
+    os.remove(path)             # about 1.2 GB
     assert (resumed.step, resumed.updates) == (2, 2)
     trainer.train_step(resumed, batches[2], cfg)
     for (k, a), (_, b) in zip(ref.model.state_dict().items(), resumed.model.state_dict().items()):
@@ -151,7 +152,9 @@ def test_resume_fills_the_adam_state_an_older_file_lacks(tmp_path):
         trainer.train_step(ref, b, cfg)
     run = _state(cfg, seed=0)
     trainer.train_step(run, batches[0], cfg)
-    payload = torch.load(ckpt_lib.save(str(tmp_path), run, step=run.step), weights_only=True)
+    path = ckpt_lib.save(str(tmp_path), run, step=run.step)
+    payload = torch.load(path, weights_only=True)
+    os.remove(path)             # about 1.2 GB
     states = payload["optimizer"]["state"]
     gradless = [i for i, st in states.items() if not st["exp_avg"].any() and not st["exp_avg_sq"].any()]
     assert gradless
@@ -160,6 +163,7 @@ def test_resume_fills_the_adam_state_an_older_file_lacks(tmp_path):
     old = str(tmp_path / "older.pt")
     torch.save(payload, old)
     resumed = ckpt_lib.restore_into(_state(cfg, seed=1), old)
+    os.remove(old)
     for p in resumed.model.parameters():
         st = resumed.optimizer.state[p]
         assert int(st["step"]) == resumed.updates == 1
@@ -193,6 +197,7 @@ def test_train_entry_point_runs_on_the_cpu(tmp_path):
     first = json.loads(lines[0])
     assert first["step"] == 0 and all(k in first for k in ("img_loss", "pose_loss", "grad_norm"))
     payload = torch.load(ckpt, weights_only=True)
+    os.remove(ckpt)             # about 1.2 GB
     assert payload["step"] == 2
 
 

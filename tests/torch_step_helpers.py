@@ -20,7 +20,7 @@ from coponerf_tpu_torch.config import Config, LossConfig, ModelConfig, TrainConf
 from coponerf_tpu_torch.data.synthetic import make_batch
 from coponerf_tpu_torch.geometry import geodesic_rotation_distance, pose_inverse_4x4
 from coponerf_tpu_torch.models import CoPoNeRF, batch_to_torch
-from coponerf_tpu_torch.training import trainer
+from coponerf_tpu_torch.training import optim, trainer
 from coponerf_tpu_torch.utils.convert import convert, flax_path
 
 IMG = 32
@@ -56,20 +56,26 @@ def jax_model_and_batch(model_kw, seed):
     return jm, fast_init(jm, batch, val=False, train=True), batch_np, batch
 
 
-def run_both(model_kw, loss_kw, seed):
+def run_both(model_kw, loss_kw, seed, flat_optimizer=False):
     """Returns (variables before, JAX after {params, batch_stats, mu}, JAX
-    metrics, port TrainState after, port metrics)."""
+    metrics, port TrainState after, port metrics); ``mu`` as a params tree
+    also with ``flat_optimizer`` (both sides' Adam over one vector)."""
+    from jax.flatten_util import ravel_pytree
+
     jm, variables, batch_np, batch = jax_model_and_batch(model_kw, seed)
-    jcfg = JConfig(model=jm.cfg, loss=JLossConfig(**loss_kw), train=JTrainConfig(lr=LR))
+    jcfg = JConfig(model=jm.cfg, loss=JLossConfig(**loss_kw), train=JTrainConfig(lr=LR, flat_optimizer=flat_optimizer))
     before = jax.tree.map(np.array, variables)          # copies: the step donates its state
     state = TrainState.create(apply_fn=jm.apply, params=variables["params"],
                               batch_stats=variables["batch_stats"], tx=make_optimizer(jcfg, steps_per_epoch=100))
     jstate, jmetrics = make_train_step(jcfg)(state, batch)
+    mu = _adam_mu(jstate.opt_state)
+    if flat_optimizer:
+        mu = ravel_pytree(jstate.params)[1](mu)
     jax_after = {"params": jax.device_get(jstate.params), "batch_stats": jax.device_get(jstate.batch_stats),
-                 "mu": jax.device_get(_adam_mu(jstate.opt_state))}
+                 "mu": jax.device_get(mu)}
 
     cfg = Config(model=ModelConfig(**model_kw), loss=LossConfig(**loss_kw),
-                 train=TrainConfig(lr=LR, steps_per_epoch=100))
+                 train=TrainConfig(lr=LR, steps_per_epoch=100, flat_optimizer=flat_optimizer))
     port = CoPoNeRF(cfg.model, image_size=IMG)
     port.load_state_dict(convert(before), strict=True)
     tstate = trainer.create_train_state(cfg, IMG, "cpu", model=port)
@@ -149,10 +155,14 @@ def gradient_cosines(jax_after, tstate):
     import torch
 
     out = {}
+    flat = optim.adam_state(tstate) if getattr(tstate, "flat", None) is not None else None
     for key, p in tstate.model.named_parameters():
         path, _ = flax_path(key, tuple(p.shape))
         ref = leaf(jax_after["mu"], path[1:])
-        mom = tstate.optimizer.state[p].get("exp_avg", torch.zeros_like(p))   # no state: no gradient
+        if flat is not None:
+            mom = flat[key]["exp_avg"]
+        else:
+            mom = tstate.optimizer.state[p].get("exp_avg", torch.zeros_like(p))   # no state: no gradient
         got = to_flax_layout(key, mom.numpy())
         denom = np.linalg.norm(got) * np.linalg.norm(ref)
         if denom == 0:
