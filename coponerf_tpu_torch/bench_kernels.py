@@ -453,7 +453,8 @@ def time_train_step(dev, n_steps: int) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         trainer.train_step(state, batches[0], cfg)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
     sampler = [e for e in kernels if SAMPLER_KERNEL in e.key]
     adam_state_leaves = len(state.optimizer.state)
     return {"step_ms": times[2:], "median_step_ms": statistics.median(times[2:]),

@@ -26,6 +26,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from coponerf_tpu_torch import trace
 from coponerf_tpu_torch.eval import metrics as M
 from coponerf_tpu_torch.models.coponerf import batch_to_torch
 
@@ -80,11 +81,13 @@ def make_renderer(model, chunk: int = 4096, keys: tuple = ("rgb", "depth_ray", "
                 parts[k].append(out[k])
         return {k: torch.cat(v, dim=_RAY_AXIS[k]) for k, v in parts.items()}
 
+    @trace.spanned("render_image")
     def render_image(batch, state, n_rays: int) -> Dict[str, torch.Tensor]:
         render_image.last_n_rendered = n_rays
         if not prune_invalid:
             return render_full(batch, state, n_rays)
         mask = model.valid_ray_mask(batch, state, val=True).cpu().numpy()   # (B, n_rays) bool
+        trace.count("host_syncs")
         n_valid = int(mask.sum(axis=-1).max())
         if n_valid >= n_rays:
             return render_full(batch, state, n_rays)
@@ -93,6 +96,7 @@ def make_renderer(model, chunk: int = 4096, keys: tuple = ("rgb", "depth_ray", "
         # even when no ray is valid (render() itself whitens invalid rays)
         order_np = np.argsort(~mask, axis=-1, kind="stable")
         order = torch.as_tensor(order_np, device=batch["query"]["uv"].device)
+        trace.count("host_syncs")
         n_render = min(n_rays, max(chunk, -(-n_valid // chunk) * chunk))
         render_image.last_n_rendered = n_render
         q = dict(batch["query"])

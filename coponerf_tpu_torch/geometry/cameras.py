@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from coponerf_tpu_torch import trace
+
 PROJ_SENTINEL = 1.0e10  # non-finite projections are scrubbed to this value
 
 
@@ -74,6 +76,7 @@ def _affine3(T: torch.Tensor, x, y, z) -> torch.Tensor:
 def project_cam2world(world_coords: torch.Tensor, cam2world: torch.Tensor) -> torch.Tensor:
     """World points (B, N, 3) into the camera frame of ``cam2world`` (B, 4, 4)."""
     w2c = torch.linalg.inv(cam2world)
+    trace.count("host_syncs")        # linalg.inv checks its result on the host
     return _affine3(
         w2c[..., None, :, :],
         world_coords[..., 0], world_coords[..., 1], world_coords[..., 2],
@@ -156,6 +159,7 @@ def batch_project_to_other_img(kpi, di, Ki, Kj, T_itoj):
     if di.dim() == kpi.dim():
         di = di[..., 0]
     kpi_3d_i = to_homogeneous(kpi) @ torch.linalg.inv(Ki).transpose(-1, -2)
+    trace.count("host_syncs")        # linalg.inv checks its result on the host
     kpi_3d_i = kpi_3d_i * di[..., None]
     kpi_3d_j = from_homogeneous(to_homogeneous(kpi_3d_i) @ T_itoj.transpose(-1, -2))
     return from_homogeneous(kpi_3d_j @ Kj.transpose(-1, -2))

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from coponerf_tpu_torch import trace
 from coponerf_tpu_torch.geometry.cameras import to_homogeneous
 
 
@@ -95,6 +96,7 @@ def project_rays(origins, directions, extrinsics, intrinsics, epsilon: float = 1
     intrinsics = intrinsics[..., :3, :3]
 
     world_to_cam = torch.linalg.inv(extrinsics)
+    trace.count("host_syncs")        # linalg.inv checks its result on the host
     o = torch.einsum("cij,crj->cri", world_to_cam, to_homogeneous(origins))[..., :3]
     d_h = torch.cat([directions, torch.zeros_like(directions[..., :1])], dim=-1)
     d = torch.einsum("cij,crj->cri", world_to_cam, d_h)[..., :3]

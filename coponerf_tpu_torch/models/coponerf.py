@@ -39,6 +39,7 @@ import torch.nn as nn
 
 from coponerf_tpu_torch import flow as flow_ops
 from coponerf_tpu_torch import geometry as G
+from coponerf_tpu_torch import trace
 from coponerf_tpu_torch.config import ModelConfig
 from coponerf_tpu_torch.models.cross_block import CrossBlock
 from coponerf_tpu_torch.models.layers import ConvNHWC, Dense, MLPSeq
@@ -83,6 +84,7 @@ class SceneState:
 def _normalize_rgb(rgb: torch.Tensor) -> torch.Tensor:
     mean = torch.tensor(IMAGENET_MEAN, dtype=rgb.dtype, device=rgb.device)
     std = torch.tensor(IMAGENET_STD, dtype=rgb.dtype, device=rgb.device)
+    trace.count("host_syncs", 2)     # two blocking host-to-device copies
     return ((rgb + 1.0) / 2.0 - mean) / std
 
 
@@ -131,6 +133,7 @@ class CoPoNeRF(nn.Module):
     # encode: features, correspondence, relative pose
     # ------------------------------------------------------------------ #
 
+    @trace.spanned("encode")
     def encode(self, batch: Dict[str, Any], train: bool = False) -> SceneState:
         """``train`` normalises the encoder's BatchNorms with the batch
         statistics and updates their running statistics."""
@@ -140,32 +143,36 @@ class CoPoNeRF(nn.Module):
         rgb = _normalize_rgb(rgb.reshape(B * V, H, W, 3))
         bf16 = self.cfg.compute_dtype == "bfloat16"
         cd = torch.bfloat16 if bf16 else torch.float32
-        # the encoder computes in f32 on the (bf16-rounded, under bf16) input;
-        # the UFC casts the latents to its own compute dtype
-        z_feats = self.encoder(rgb.to(cd), train=train)
-        z_conv = self.conv_map(rgb)
-        feat_list, flows, c = self.feature_cost_aggregation(z_feats, V)
+        with trace.span("encode.backbone"):
+            # the encoder computes in f32 on the (bf16-rounded, under bf16)
+            # input; the UFC casts the latents to its own compute dtype
+            z_feats = self.encoder(rgb.to(cd), train=train)
+            z_conv = self.conv_map(rgb)
+        with trace.span("encode.ufc"):
+            feat_list, flows, c = self.feature_cost_aggregation(z_feats, V)
 
-        intr = ctx["intrinsics"]
-        fx = intr[:, 0, 0, 0][:, None] / H
-        fy = intr[:, 0, 1, 1][:, None] / H
-        cx = intr[:, 0, 0, 2][:, None] / H
-        cy = intr[:, 0, 1, 2][:, None] / H
-        tokens = feat_list[-1].reshape(B * V, -1, feat_list[-1].shape[-1]).float()
-        pose_feat = self.cross_attention(tokens, c, (fx, fy, cx, cy)).reshape(B, -1)
-        pose_latent = self.pose_regressor(pose_feat)[:, :128]
-        rot = self.rotation_regressor(pose_latent)
-        tran = self.translation_regressor(pose_latent)
-        R = G.r6d2mat(rot)[:, :3, :3]
-        top = torch.cat([R, tran[..., None]], dim=-1)
-        bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=top.dtype, device=top.device)
-        rel_pose = torch.cat([top, bottom.expand(B, 1, 4)], dim=1)
+        with trace.span("encode.pose"):
+            intr = ctx["intrinsics"]
+            fx = intr[:, 0, 0, 0][:, None] / H
+            fy = intr[:, 0, 1, 1][:, None] / H
+            cx = intr[:, 0, 0, 2][:, None] / H
+            cy = intr[:, 0, 1, 2][:, None] / H
+            tokens = feat_list[-1].reshape(B * V, -1, feat_list[-1].shape[-1]).float()
+            pose_feat = self.cross_attention(tokens, c, (fx, fy, cx, cy)).reshape(B, -1)
+            pose_latent = self.pose_regressor(pose_feat)[:, :128]
+            rot = self.rotation_regressor(pose_latent)
+            tran = self.translation_regressor(pose_latent)
+            R = G.r6d2mat(rot)[:, :3, :3]
+            top = torch.cat([R, tran[..., None]], dim=-1)
+            bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=top.dtype, device=top.device)
+            trace.count("host_syncs")    # a blocking host-to-device copy
+            rel_pose = torch.cat([top, bottom.expand(B, 1, 4)], dim=1)
 
-        # K1 and K8a read each table as contiguous NHWC rows
-        z = tuple(t.contiguous() for t in (*feat_list, z_conv))
-        up = self.cfg.mask_upsample
-        _, _, _, mask_bwd = flow_ops.cyclic_consistency_masks(flows[0], flows[1], out_size=up, scale=up / W)
-        kps_flow_bwd = resize_nchw(flows[1], (up, up), align_corners=False) * (up / flows[1].shape[-2])
+            # K1 and K8a read each table as contiguous NHWC rows
+            z = tuple(t.contiguous() for t in (*feat_list, z_conv))
+            up = self.cfg.mask_upsample
+            _, _, _, mask_bwd = flow_ops.cyclic_consistency_masks(flows[0], flows[1], out_size=up, scale=up / W)
+            kps_flow_bwd = resize_nchw(flows[1], (up, up), align_corners=False) * (up / flows[1].shape[-2])
         z0_bf16 = None
         if self.cfg.fast_sampling and not train:
             for zl in z:
@@ -214,6 +221,7 @@ class CoPoNeRF(nn.Module):
         _, _, _, proj, _ = self._query_cams(batch, state.rel_pose, val)
         return proj["overlaps_image"].reshape(B, -1, n_rays).any(dim=1)
 
+    @trace.spanned("render")
     def render(self, batch: Dict[str, Any], state: SceneState, val: bool = False,
                train: bool = False, fusion: Optional[str] = None) -> Dict[str, Any]:
         """``fusion``: None, ``"attn_embed"`` (K7) or ``"render_core"`` (K6);
@@ -345,6 +353,7 @@ class CoPoNeRF(nn.Module):
         fast_embed = cfg.fast_sampling
         if fast_embed:
             ps_rows = torch.tensor([0, 1, 2, 9, 10, 11, 12], device=ray_dir.device)
+            trace.count("host_syncs")    # a blocking host-to-device copy
             qe_k, qe_b = self.query_embed.kernel, self.query_embed.bias
             qe_ps, qe_rd, qe_qo = qe_k[ps_rows].to(cd), qe_k[6:9], qe_k[13:16]
             qro_row = query_ray_orig[:, :, 0, :]
@@ -461,16 +470,18 @@ class CoPoNeRF(nn.Module):
             return dot.transpose(2, 3) if smaj else dot
 
         lin = torch.linspace(0.0, 1.0, S1, dtype=start.dtype, device=start.device)
-        stages = [run_stage(lin, S1)]
+        with trace.span("render.stage_a"):
+            stages = [run_stage(lin, S1)]
         if two_stage:
-            S2 = cfg.fine_samples
-            d1 = ray_major(stages[0]["dot1"])
-            s_star = torch.argmax(d1, dim=-1).float()
-            t_lo = torch.clamp((s_star - 1.0) / (S1 - 1), 0.0, 1.0)
-            t_hi = torch.clamp((s_star + 1.0) / (S1 - 1), 0.0, 1.0)
-            offs = (torch.arange(S2, dtype=torch.float32, device=start.device) + 0.5) / S2
-            tv2 = t_lo[..., None] + (t_hi - t_lo)[..., None] * offs
-            stages.append(run_stage(tv2.reshape(B * V, n_rays, S2), S2))
+            with trace.span("render.stage_b"):
+                S2 = cfg.fine_samples
+                d1 = ray_major(stages[0]["dot1"])
+                s_star = torch.argmax(d1, dim=-1).float()
+                t_lo = torch.clamp((s_star - 1.0) / (S1 - 1), 0.0, 1.0)
+                t_hi = torch.clamp((s_star + 1.0) / (S1 - 1), 0.0, 1.0)
+                offs = (torch.arange(S2, dtype=torch.float32, device=start.device) + 0.5) / S2
+                tv2 = t_lo[..., None] + (t_hi - t_lo)[..., None] * offs
+                stages.append(run_stage(tv2.reshape(B * V, n_rays, S2), S2))
 
         def joint_softmax(dots_list):
             d_all = torch.cat([ray_major(d) for d in dots_list], dim=-1)   # (B, V, N, SE)
@@ -501,70 +512,73 @@ class CoPoNeRF(nn.Module):
                 ub = b2 if ub is None else ub + b2
             return ua @ flv_a + ub @ flv_b + flv_bias
 
-        qre_mod, qre2_mod = self.query_repeat_embed, self.query_repeat_embed_2
-        ze_rows = qre_mod.kernel.shape[0] - 16
-        if fusion == "render_core":
-            st = stages[0]
-            km2, qe, qe2, enc = self.key_map_2, self.query_embed, self.query_embed_2, self.encode_latent
-            z_sum, at = render_core(
-                st["samples_p"], st["pt_p"], st["samples_s"], st["pt_s"], st["lc16"],
-                w1_k, w1_b, fk_a, fk_b, fk_bias, km2.kernel, km2.bias, qe.kernel, qe.bias, qe2.kernel, qe2.bias,
-                qre_mod.kernel[:ze_rows], qre_mod.kernel[ze_rows:], qre_mod.bias, qre2_mod.kernel, qre2_mod.bias,
-                enc.kernel, enc.bias, flv_a, flv_b, flv_bias, S, V, n_rays,
-            )
-            at_wt = at.reshape(B, n_rays, V, S).permute(0, 2, 1, 3).reshape(B * V, n_rays, S)
-        else:
-            w1_list, at_wt_bv = joint_softmax([st["dot1"] for st in stages])
-            at_wt = at_wt_bv.reshape(B * V, n_rays, -1)
-            z_sum = weighted_latent(w1_list)
+        with trace.span("render.attention"):
+            qre_mod, qre2_mod = self.query_repeat_embed, self.query_repeat_embed_2
+            ze_rows = qre_mod.kernel.shape[0] - 16
+            if fusion == "render_core":
+                st = stages[0]
+                km2, qe, qe2, enc = self.key_map_2, self.query_embed, self.query_embed_2, self.encode_latent
+                z_sum, at = render_core(
+                    st["samples_p"], st["pt_p"], st["samples_s"], st["pt_s"], st["lc16"],
+                    w1_k, w1_b, fk_a, fk_b, fk_bias, km2.kernel, km2.bias, qe.kernel, qe.bias, qe2.kernel, qe2.bias,
+                    qre_mod.kernel[:ze_rows], qre_mod.kernel[ze_rows:], qre_mod.bias, qre2_mod.kernel, qre2_mod.bias,
+                    enc.kernel, enc.bias, flv_a, flv_b, flv_bias, S, V, n_rays,
+                )
+                at_wt = at.reshape(B, n_rays, V, S).permute(0, 2, 1, 3).reshape(B * V, n_rays, S)
+            else:
+                w1_list, at_wt_bv = joint_softmax([st["dot1"] for st in stages])
+                at_wt = at_wt_bv.reshape(B * V, n_rays, -1)
+                z_sum = weighted_latent(w1_list)
 
-        if cfg.repeat_attention and fusion == "attn_embed":
-            z_embed = self.encode_latent(z_sum)
-            qe, qe2 = self.query_embed, self.query_embed_2
-            dots2 = [
-                round2_logits(z_embed, st["lc16"], qe.kernel, qe.bias, qe2.kernel, qe2.bias,
-                              qre_mod.kernel[:ze_rows], qre_mod.kernel[ze_rows:], qre_mod.bias,
-                              qre2_mod.kernel, qre2_mod.bias, st["S"], V).reshape(st["tg"])
-                for st in stages
-            ]
-            w2_list, _ = joint_softmax(dots2)
-            z_sum = weighted_latent(w2_list) + V * z_sum
-        elif cfg.repeat_attention and fusion is None:
-            z_embed = self.encode_latent(z_sum)
-            C_ze = z_embed.shape[-1]
-            dots2 = []
-            if fast_embed:
-                ze_part = z_embed.float() @ qre_z
-                ze_rows = ze_part[:, None].expand(B, V, *ze_part.shape[1:]).reshape(B * V, n_rays, -1)
-                pre2_ray_full = (pre2_ray + ze_rows).to(cd)
-            for st in stages:
-                S_, tg_ = st["S"], st["tg"]
+            if cfg.repeat_attention and fusion == "attn_embed":
+                z_embed = self.encode_latent(z_sum)
+                qe, qe2 = self.query_embed, self.query_embed_2
+                dots2 = [
+                    round2_logits(z_embed, st["lc16"], qe.kernel, qe.bias, qe2.kernel, qe2.bias,
+                                  qre_mod.kernel[:ze_rows], qre_mod.kernel[ze_rows:], qre_mod.bias,
+                                  qre2_mod.kernel, qre2_mod.bias, st["S"], V).reshape(st["tg"])
+                    for st in stages
+                ]
+                w2_list, _ = joint_softmax(dots2)
+                z_sum = weighted_latent(w2_list) + V * z_sum
+            elif cfg.repeat_attention and fusion is None:
+                z_embed = self.encode_latent(z_sum)
+                C_ze = z_embed.shape[-1]
+                dots2 = []
                 if fast_embed:
-                    pre2 = add_perray(st["lc_tok"] @ qre_ps, pre2_ray_full, S_)
+                    ze_part = z_embed.float() @ qre_z
+                    ze_rows = ze_part[:, None].expand(B, V, *ze_part.shape[1:]).reshape(B * V, n_rays, -1)
+                    pre2_ray_full = (pre2_ray + ze_rows).to(cd)
+                for st in stages:
+                    S_, tg_ = st["S"], st["tg"]
+                    if fast_embed:
+                        pre2 = add_perray(st["lc_tok"] @ qre_ps, pre2_ray_full, S_)
+                        emb2 = self.query_repeat_embed_2(torch.relu(pre2))
+                        dots2.append(torch.sum(emb2.reshape(*tg_, -1) * st["ce"], dim=-1, dtype=torch.float32) / 11.31)
+                        continue
+                    if smaj:
+                        ze = z_embed[:, None, :, :].expand(B, S_, n_rays, C_ze)
+                    else:
+                        ze = z_embed[:, :, None, :].expand(B, n_rays, S_, C_ze)
+                    lc = st["lc_tok"].reshape(*tg_, -1)
+                    ze_bv = ze[:, None].expand(B, V, *ze.shape[1:])
+                    pre2 = self.query_repeat_embed(torch.cat([ze_bv, lc], dim=-1))
                     emb2 = self.query_repeat_embed_2(torch.relu(pre2))
-                    dots2.append(torch.sum(emb2.reshape(*tg_, -1) * st["ce"], dim=-1, dtype=torch.float32) / 11.31)
-                    continue
-                if smaj:
-                    ze = z_embed[:, None, :, :].expand(B, S_, n_rays, C_ze)
-                else:
-                    ze = z_embed[:, :, None, :].expand(B, n_rays, S_, C_ze)
-                lc = st["lc_tok"].reshape(*tg_, -1)
-                ze_bv = ze[:, None].expand(B, V, *ze.shape[1:])
-                emb2 = self.query_repeat_embed_2(torch.relu(self.query_repeat_embed(torch.cat([ze_bv, lc], dim=-1))))
-                dots2.append(torch.sum(emb2 * st["ce"], dim=-1, dtype=torch.float32) / 11.31)
-            w2_list, _ = joint_softmax(dots2)
-            z_sum = weighted_latent(w2_list) + V * z_sum
+                    dots2.append(torch.sum(emb2 * st["ce"], dim=-1, dtype=torch.float32) / 11.31)
+                w2_list, _ = joint_softmax(dots2)
+                z_sum = weighted_latent(w2_list) + V * z_sum
 
-        z_flat = torch.cat([z_sum] * V, dim=-1)
-        qro_n = query_ray_orig[:, :, 0, :].expand(B * V, n_rays, 3)
-        coords9 = torch.cat([lf_coords, qro_n], dim=-1)
-        coords18 = coords9.reshape(B, V, n_rays, 9).permute(0, 2, 1, 3).reshape(B, n_rays, -1)
-        rgb = self.phi(torch.cat([z_flat, coords18], dim=-1))
+        with trace.span("render.decode"):
+            z_flat = torch.cat([z_sum] * V, dim=-1)
+            qro_n = query_ray_orig[:, :, 0, :].expand(B * V, n_rays, 3)
+            coords9 = torch.cat([lf_coords, qro_n], dim=-1)
+            coords18 = coords9.reshape(B, V, n_rays, 9).permute(0, 2, 1, 3).reshape(B, n_rays, -1)
+            rgb = self.phi(torch.cat([z_flat, coords18], dim=-1))
 
-        vm_any = (valid_mask.reshape(B, V, n_rays) > 0).any(dim=1).to(rgb.dtype)
-        rgb = rgb * vm_any[..., None] + (1.0 - vm_any[..., None])
-        out["valid_mask"] = vm_any[..., None]
-        out["rgb"] = rgb.reshape(B, n_qry, n_rays, 3)
+            vm_any = (valid_mask.reshape(B, V, n_rays) > 0).any(dim=1).to(rgb.dtype)
+            rgb = rgb * vm_any[..., None] + (1.0 - vm_any[..., None])
+            out["valid_mask"] = vm_any[..., None]
+            out["rgb"] = rgb.reshape(B, n_qry, n_rays, 3)
 
         pt_all = torch.cat([st["pt"] for st in stages], dim=-2)
         pt_clamp = torch.clamp(pt_all, -100.0, 100.0)
@@ -600,6 +614,7 @@ class CoPoNeRF(nn.Module):
         out["rel_pose_flip"] = G.pose_inverse_4x4(rel_pose)
         out["gt_rel_pose"] = G.pose_inverse_4x4(ctx_c2w[:, 0]) @ ctx_c2w[:, 1]
         out["gt_rel_pose_flip"] = torch.linalg.inv(G.pose_inverse_4x4(ctx_c2w[:, -1]) @ ctx_c2w[:, 0])
+        trace.count("host_syncs")        # linalg.inv checks its result on the host
         return out
 
     def forward(self, batch: Dict[str, Any], val: bool = False, train: bool = False):

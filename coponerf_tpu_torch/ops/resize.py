@@ -13,6 +13,8 @@ import functools
 import numpy as np
 import torch
 
+from coponerf_tpu_torch import trace
+
 
 @functools.lru_cache(maxsize=None)
 def _linear_weights_np(in_size: int, out_size: int, align_corners: bool) -> np.ndarray:
@@ -42,6 +44,7 @@ def _linear_weights_np(in_size: int, out_size: int, align_corners: bool) -> np.n
 def _contract(x: torch.Tensor, ax: int, out_size: int, align_corners: bool) -> torch.Tensor:
     w = torch.from_numpy(_linear_weights_np(x.shape[ax], out_size, align_corners))
     w = w.to(device=x.device, dtype=x.dtype)
+    trace.count("host_syncs")        # a blocking host-to-device copy
     return torch.movedim(torch.tensordot(w, x, dims=([1], [ax])), 0, ax)
 
 

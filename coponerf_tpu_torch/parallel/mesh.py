@@ -37,6 +37,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from coponerf_tpu_torch import trace
+
 # what a rank waits in a collective before it gives up: a rank that raised
 # leaves the others blocked there
 DEFAULT_TIMEOUT_S = 60.0
@@ -171,6 +173,7 @@ def replicate(mesh: Mesh, module: torch.nn.Module) -> torch.nn.Module:
     with torch.no_grad():
         for t in (*module.parameters(), *module.buffers()):
             dist.broadcast(t.data, src=0)
+            trace.count("collectives")
     return module
 
 
@@ -183,12 +186,14 @@ class _AllReduceSum(torch.autograd.Function):
         ctx.group = group
         out = x.clone()
         dist.all_reduce(out, group=group)
+        trace.count("collectives")
         return out
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.clone()
         dist.all_reduce(grad, group=ctx.group)
+        trace.count("collectives")
         return grad, None
 
 
@@ -210,6 +215,7 @@ def average_gradients(mesh: Mesh, grads: Sequence[torch.Tensor]) -> None:
     vector) is reduced where it lies, with no copy."""
     if not grads:
         return
+    trace.count("collectives")
     if len(grads) == 1:
         dist.all_reduce(grads[0])
         grads[0].div_(mesh.world_size)
@@ -228,6 +234,7 @@ def average_over_world(mesh: Mesh, values: torch.Tensor) -> torch.Tensor:
     """``values`` averaged over every rank (not differentiable)."""
     out = values.detach().clone()
     dist.all_reduce(out)
+    trace.count("collectives")
     return out.div_(mesh.world_size)
 
 

@@ -18,6 +18,7 @@ from typing import Any, Dict, Sequence
 import torch
 import torch.distributed as dist
 
+from coponerf_tpu_torch import trace
 from coponerf_tpu_torch.eval.harness import _RAY_AXIS, _chunk_query
 from coponerf_tpu_torch.parallel.mesh import Mesh
 
@@ -30,6 +31,7 @@ def _gather_along(group, part: torch.Tensor, full_shape, dim: int, start: int) -
     full.narrow(dim, start, part.shape[dim]).copy_(part)
     if group is not None:
         dist.all_reduce(full, group=group)
+        trace.count("collectives")
     return full
 
 

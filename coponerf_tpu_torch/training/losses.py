@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from coponerf_tpu_torch import flow as flow_ops
+from coponerf_tpu_torch import trace
 from coponerf_tpu_torch.config import LossConfig
 from coponerf_tpu_torch.geometry import geodesic_rotation_distance
 from coponerf_tpu_torch.parallel.mesh import Mesh, group_size
@@ -48,6 +49,7 @@ def global_sum(x: torch.Tensor, group) -> Tuple[torch.Tensor, int]:
         return x, 1
     x = x.clone()
     torch.distributed.all_reduce(x, group=group)
+    trace.count("collectives")
     return x, group_size(group)
 
 

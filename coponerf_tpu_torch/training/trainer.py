@@ -58,6 +58,7 @@ from typing import Any, Callable, Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from coponerf_tpu_torch import trace
 from coponerf_tpu_torch.config import Config
 from coponerf_tpu_torch.models import CoPoNeRF, batch_to_torch
 from coponerf_tpu_torch.parallel.mesh import (Mesh, attach_batch_norm, average_gradients, average_over_world,
@@ -140,6 +141,7 @@ def nan_checks(model: torch.nn.Module):
             h.remove()
 
 
+@trace.spanned("train_step")
 def train_step(state: TrainState, batch: Dict[str, Any], cfg: Config,
                mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
     """One step on a batch of tensors on the model's device.  Returns the
@@ -153,37 +155,45 @@ def train_step(state: TrainState, batch: Dict[str, Any], cfg: Config,
     if mesh is not None:
         attach_batch_norm(model, mesh)
     with nan_checks(model) if cfg.train.debug_nans else contextlib.nullcontext():
-        out = model(batch, val=False, train=True)
-        losses, _ = lf_loss(cfg.loss, batch, out, batch["query"], mesh=mesh)
-        total = sum(losses.values())
-        if flat is None:
-            opt.zero_grad(set_to_none=True)
-        else:
-            flat.zero_grad()
-        total.backward()
+        with trace.span("train.forward"):
+            out = model(batch, val=False, train=True)
+        with trace.span("train.loss"):
+            losses, _ = lf_loss(cfg.loss, batch, out, batch["query"], mesh=mesh)
+            total = sum(losses.values())
+        with trace.span("train.backward"):
+            if flat is None:
+                opt.zero_grad(set_to_none=True)
+            else:
+                flat.zero_grad()
+            total.backward()
     grads = [p.grad for p in model.parameters() if p.grad is not None] if flat is None else [flat.grad]
     if mesh is not None:
-        average_gradients(mesh, grads)
-    norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
-    finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
-    if finite:
-        max_norm = cfg.train.clip_grad_norm
-        if norm.item() >= max_norm:
-            for g in grads:
-                g.div_(norm).mul_(max_norm)
-        for p in (model.parameters() if flat is None else ()):
-            if p.grad is None:      # no loss reaches it: optax's zero gradient
-                p.grad = torch.zeros_like(p)
-        for group in opt.param_groups:
-            group["lr"] = learning_rate(cfg, state.updates)
-        opt.step()
-        state.updates += 1
-        state.notfinite_count = 0
-    else:
-        state.notfinite_count += 1
-        state.total_notfinite += 1
-    if flat is None:
-        opt.zero_grad(set_to_none=True)
+        with trace.span("train.allreduce"):
+            average_gradients(mesh, grads)
+    with trace.span("train.update"):
+        norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+        finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
+        trace.count("host_syncs")
+        if finite:
+            max_norm = cfg.train.clip_grad_norm
+            clip = norm.item() >= max_norm
+            trace.count("host_syncs")
+            if clip:
+                for g in grads:
+                    g.div_(norm).mul_(max_norm)
+            for p in (model.parameters() if flat is None else ()):
+                if p.grad is None:      # no loss reaches it: optax's zero gradient
+                    p.grad = torch.zeros_like(p)
+            for group in opt.param_groups:
+                group["lr"] = learning_rate(cfg, state.updates)
+            opt.step()
+            state.updates += 1
+            state.notfinite_count = 0
+        else:
+            state.notfinite_count += 1
+            state.total_notfinite += 1
+        if flat is None:
+            opt.zero_grad(set_to_none=True)
     state.step += 1
     metrics = {k: v.detach() for k, v in losses.items()}
     metrics["total_train_loss"] = total.detach()

@@ -1,0 +1,8 @@
+"""train.forward_ms: device time (CUDA events) of the train step's forward,
+``train.forward``, per step in the traced slice (rank 0's on a mesh)."""
+
+from portbench.metrics._spans import per_unit
+
+
+def read(rec):
+    return per_unit(rec, ("train.forward",), "device_ms", "train_step")

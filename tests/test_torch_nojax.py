@@ -43,6 +43,7 @@ import sys
 import torch
 torch.set_num_threads(2)
 import coponerf_tpu_torch
+import coponerf_tpu_torch.trace
 import coponerf_tpu_torch.test
 import coponerf_tpu_torch.bench_kernels
 import coponerf_tpu_torch.render_path
