@@ -32,6 +32,7 @@ attention rounds and K3.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -42,6 +43,7 @@ from coponerf_tpu_torch import geometry as G
 from coponerf_tpu_torch import trace
 from coponerf_tpu_torch.config import ModelConfig
 from coponerf_tpu_torch.models.cross_block import CrossBlock
+from coponerf_tpu_torch.models.encode_graph import EncodeGraphs
 from coponerf_tpu_torch.models.layers import ConvNHWC, Dense, MLPSeq
 from coponerf_tpu_torch.models.lightfield import ResnetFC
 from coponerf_tpu_torch.models.resnet import ResNet34Encoder
@@ -70,9 +72,10 @@ class SceneState:
     # pair (None otherwise)
     z0_bf16: Optional[torch.Tensor] = None
 
-    def to(self, device) -> "SceneState":
+    def map(self, fn) -> "SceneState":
+        """The state with ``fn`` applied to each of its tensors."""
         def mv(x):
-            return None if x is None else x.to(device)
+            return None if x is None else fn(x)
 
         return SceneState(
             z=tuple(mv(t) for t in self.z), rel_pose=mv(self.rel_pose),
@@ -80,11 +83,25 @@ class SceneState:
             kps_flow_bwd=mv(self.kps_flow_bwd), z0_bf16=mv(self.z0_bf16),
         )
 
+    def to(self, device) -> "SceneState":
+        return self.map(lambda t: t.to(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _constants(device: torch.device, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """ImageNet's mean and std and the pose's bottom row, on ``device`` in
+    ``dtype``: copied once a key (each copy blocks the host, and a CUDA
+    graph could not capture it), read and never written.  Outside
+    inference mode, so that autograd may save them."""
+    with torch.inference_mode(False):
+        consts = tuple(torch.tensor(v, dtype=dtype, device=device)
+                       for v in (IMAGENET_MEAN, IMAGENET_STD, [[0.0, 0.0, 0.0, 1.0]]))
+    trace.count("host_syncs", 3)     # three blocking host-to-device copies
+    return consts
+
 
 def _normalize_rgb(rgb: torch.Tensor) -> torch.Tensor:
-    mean = torch.tensor(IMAGENET_MEAN, dtype=rgb.dtype, device=rgb.device)
-    std = torch.tensor(IMAGENET_STD, dtype=rgb.dtype, device=rgb.device)
-    trace.count("host_syncs", 2)     # two blocking host-to-device copies
+    mean, std, _ = _constants(rgb.device, rgb.dtype)
     return ((rgb + 1.0) / 2.0 - mean) / std
 
 
@@ -128,6 +145,7 @@ class CoPoNeRF(nn.Module):
         self.encode_latent = Dense(half, hid)
         self.phi = ResnetFC(d_in=c.n_view * 9, d_out=3, n_blocks=3, d_latent=half * c.n_view,
                             d_hidden=c.num_hidden_units_phi)
+        self._encode_graphs = EncodeGraphs()
 
     # ------------------------------------------------------------------ #
     # encode: features, correspondence, relative pose
@@ -136,43 +154,58 @@ class CoPoNeRF(nn.Module):
     @trace.spanned("encode")
     def encode(self, batch: Dict[str, Any], train: bool = False) -> SceneState:
         """``train`` normalises the encoder's BatchNorms with the batch
-        statistics and updates their running statistics."""
+        statistics and updates their running statistics.  An inference
+        encode of CUDA inputs with gradients off replays CUDA graphs of
+        its three stages (``models/encode_graph.py``); the others run
+        eagerly."""
         ctx = batch["context"]
-        rgb = ctx["rgb"]
+        rgb, intr = ctx["rgb"], ctx["intrinsics"]
+        if rgb.is_cuda and not train and not torch.is_grad_enabled():
+            return self._encode_graphs(self, rgb, intr)
+        return self._encode_eager(rgb, intr, train)
+
+    def _encode_eager(self, rgb: torch.Tensor, intr: torch.Tensor, train: bool = False) -> SceneState:
+        with trace.span("encode.backbone"):
+            z_feats, z_conv = self._encode_backbone(rgb, train)
+        with trace.span("encode.ufc"):
+            feat_list, flows, c = self.feature_cost_aggregation(z_feats, rgb.shape[1])
+        with trace.span("encode.pose"):
+            return self._encode_pose(feat_list, flows, c, z_conv, intr, rgb.shape, train)
+
+    def _encode_backbone(self, rgb: torch.Tensor, train: bool):
+        """Context rgb (B, V, H, W, 3) in [-1, 1] -> (the ResNet's pyramid,
+        ``conv_map``'s full-resolution map)."""
         B, V, H, W, _ = rgb.shape
         rgb = _normalize_rgb(rgb.reshape(B * V, H, W, 3))
-        bf16 = self.cfg.compute_dtype == "bfloat16"
-        cd = torch.bfloat16 if bf16 else torch.float32
-        with trace.span("encode.backbone"):
-            # the encoder computes in f32 on the (bf16-rounded, under bf16)
-            # input; the UFC casts the latents to its own compute dtype
-            z_feats = self.encoder(rgb.to(cd), train=train)
-            z_conv = self.conv_map(rgb)
-        with trace.span("encode.ufc"):
-            feat_list, flows, c = self.feature_cost_aggregation(z_feats, V)
+        cd = torch.bfloat16 if self.cfg.compute_dtype == "bfloat16" else torch.float32
+        # the encoder computes in f32 on the (bf16-rounded, under bf16)
+        # input; the UFC casts the latents to its own compute dtype
+        return self.encoder(rgb.to(cd), train=train), self.conv_map(rgb)
 
-        with trace.span("encode.pose"):
-            intr = ctx["intrinsics"]
-            fx = intr[:, 0, 0, 0][:, None] / H
-            fy = intr[:, 0, 1, 1][:, None] / H
-            cx = intr[:, 0, 0, 2][:, None] / H
-            cy = intr[:, 0, 1, 2][:, None] / H
-            tokens = feat_list[-1].reshape(B * V, -1, feat_list[-1].shape[-1]).float()
-            pose_feat = self.cross_attention(tokens, c, (fx, fy, cx, cy)).reshape(B, -1)
-            pose_latent = self.pose_regressor(pose_feat)[:, :128]
-            rot = self.rotation_regressor(pose_latent)
-            tran = self.translation_regressor(pose_latent)
-            R = G.r6d2mat(rot)[:, :3, :3]
-            top = torch.cat([R, tran[..., None]], dim=-1)
-            bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=top.dtype, device=top.device)
-            trace.count("host_syncs")    # a blocking host-to-device copy
-            rel_pose = torch.cat([top, bottom.expand(B, 1, 4)], dim=1)
+    def _encode_pose(self, feat_list, flows, c, z_conv, intr: torch.Tensor, rgb_shape,
+                     train: bool) -> SceneState:
+        """The relative pose, the cycle mask, the upsampled flow and the
+        render's tables."""
+        B, V, H, W, _ = rgb_shape
+        fx = intr[:, 0, 0, 0][:, None] / H
+        fy = intr[:, 0, 1, 1][:, None] / H
+        cx = intr[:, 0, 0, 2][:, None] / H
+        cy = intr[:, 0, 1, 2][:, None] / H
+        tokens = feat_list[-1].reshape(B * V, -1, feat_list[-1].shape[-1]).float()
+        pose_feat = self.cross_attention(tokens, c, (fx, fy, cx, cy)).reshape(B, -1)
+        pose_latent = self.pose_regressor(pose_feat)[:, :128]
+        rot = self.rotation_regressor(pose_latent)
+        tran = self.translation_regressor(pose_latent)
+        R = G.r6d2mat(rot)[:, :3, :3]
+        top = torch.cat([R, tran[..., None]], dim=-1)
+        _, _, bottom = _constants(top.device, top.dtype)
+        rel_pose = torch.cat([top, bottom.expand(B, 1, 4)], dim=1)
 
-            # K1 and K8a read each table as contiguous NHWC rows
-            z = tuple(t.contiguous() for t in (*feat_list, z_conv))
-            up = self.cfg.mask_upsample
-            _, _, _, mask_bwd = flow_ops.cyclic_consistency_masks(flows[0], flows[1], out_size=up, scale=up / W)
-            kps_flow_bwd = resize_nchw(flows[1], (up, up), align_corners=False) * (up / flows[1].shape[-2])
+        # K1 and K8a read each table as contiguous NHWC rows
+        z = tuple(t.contiguous() for t in (*feat_list, z_conv))
+        up = self.cfg.mask_upsample
+        _, _, _, mask_bwd = flow_ops.cyclic_consistency_masks(flows[0], flows[1], out_size=up, scale=up / W)
+        kps_flow_bwd = resize_nchw(flows[1], (up, up), align_corners=False) * (up / flows[1].shape[-2])
         z0_bf16 = None
         if self.cfg.fast_sampling and not train:
             for zl in z:

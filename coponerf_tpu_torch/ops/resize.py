@@ -41,10 +41,22 @@ def _linear_weights_np(in_size: int, out_size: int, align_corners: bool) -> np.n
     return mat.astype(np.float32)
 
 
-def _contract(x: torch.Tensor, ax: int, out_size: int, align_corners: bool) -> torch.Tensor:
-    w = torch.from_numpy(_linear_weights_np(x.shape[ax], out_size, align_corners))
-    w = w.to(device=x.device, dtype=x.dtype)
+@functools.lru_cache(maxsize=None)
+def _linear_weights(in_size: int, out_size: int, align_corners: bool, device: torch.device,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """``_linear_weights_np``'s matrix on ``device`` in ``dtype``, copied
+    once a key: it is read, never written, and the copy blocks the host
+    (a CUDA graph could not capture it).  Outside inference mode, so that
+    autograd may save it."""
+    with torch.inference_mode(False):
+        w = torch.from_numpy(_linear_weights_np(in_size, out_size, align_corners))
+        w = w.to(device=device, dtype=dtype)
     trace.count("host_syncs")        # a blocking host-to-device copy
+    return w
+
+
+def _contract(x: torch.Tensor, ax: int, out_size: int, align_corners: bool) -> torch.Tensor:
+    w = _linear_weights(x.shape[ax], out_size, align_corners, x.device, x.dtype)
     return torch.movedim(torch.tensordot(w, x, dims=([1], [ax])), 0, ax)
 
 

@@ -20,6 +20,8 @@ was open.  At most ``CAP`` records are kept; spans past it only count in
                read on the host); counted on every device alike
   collectives  each ``all_reduce``/``broadcast`` of ``parallel/`` and of the
                losses' global normalisers
+  encode_graph_replays  each inference encode that replays its CUDA graphs
+               (``models/encode_graph.py``) instead of launching eagerly
 
 ``summary()`` groups the finished records by name; ``reset()`` clears the
 records, ``dropped`` and these counters (the launch counters belong to
@@ -48,7 +50,7 @@ _WRAPPERS = (
     ("split_matmul", "split_dense_relu"), ("weighted_sum", "weighted_sum_smaj"),
 )
 
-counters: Dict[str, int] = {"host_syncs": 0, "collectives": 0}
+counters: Dict[str, int] = {"host_syncs": 0, "collectives": 0, "encode_graph_replays": 0}
 _records: List["_Record"] = []
 _dropped = 0
 _collecting = 0
@@ -70,7 +72,7 @@ def _launch_fns() -> List[Any]:
 
 
 def _snapshot():
-    return counters["host_syncs"], counters["collectives"], tuple(f.launches for f in _launch_fns())
+    return tuple(counters.values()), tuple(f.launches for f in _launch_fns())
 
 
 class _Record:
@@ -91,8 +93,7 @@ class _Record:
             self.ev1 = torch.cuda.Event(enable_timing=True)
             self.ev1.record()
         end = _snapshot()
-        self.delta = (end[0] - self.start[0], end[1] - self.start[1],
-                      tuple(b - a for a, b in zip(self.start[2], end[2])))
+        self.delta = tuple(tuple(b - a for a, b in zip(s, e)) for s, e in zip(self.start, end))
 
 
 class _Span:
@@ -173,8 +174,9 @@ def reset() -> None:
 def summary() -> Dict[str, Any]:
     """{"spans": {name: {calls, parents {name or "": calls}, host_ms,
     device_ms, self_host_ms, self_device_ms, host_syncs, collectives,
-    launches {wrapper: n}}},
-    "counters": {host_syncs, collectives, launches.<wrapper>}, "dropped"}.
+    encode_graph_replays, launches {wrapper: n}}},
+    "counters": {host_syncs, collectives, encode_graph_replays,
+    launches.<wrapper>}, "dropped"}.
     ``device_ms`` is the CUDA events' time on the stream the span began on
     (None where a record has none, as on a CPU); the self times are the
     span's less its direct children's.  Waits for the device once."""
@@ -195,8 +197,8 @@ def summary() -> Dict[str, Any]:
     spans: Dict[str, Dict[str, Any]] = {}
     for r in done:
         s = spans.setdefault(r.name, {"calls": 0, "parents": {}, "host_ms": 0.0, "device_ms": 0.0,
-                                      "self_host_ms": 0.0, "self_device_ms": 0.0, "host_syncs": 0,
-                                      "collectives": 0, "launches": {}})
+                                      "self_host_ms": 0.0, "self_device_ms": 0.0, **dict.fromkeys(counters, 0),
+                                      "launches": {}})
         s["calls"] += 1
         parent = r.parent.name if r.parent is not None else ""
         s["parents"][parent] = s["parents"].get(parent, 0) + 1
@@ -207,9 +209,9 @@ def summary() -> Dict[str, Any]:
         else:
             s["device_ms"] += dev[id(r)]
             s["self_device_ms"] += dev[id(r)] - child_dev.get(id(r), 0.0)
-        s["host_syncs"] += r.delta[0]
-        s["collectives"] += r.delta[1]
-        for name, n in zip(names, r.delta[2]):
+        for name, n in zip(counters, r.delta[0]):
+            s[name] += n
+        for name, n in zip(names, r.delta[1]):
             if n:
                 s["launches"][name] = s["launches"].get(name, 0) + n
     totals = dict(counters)
