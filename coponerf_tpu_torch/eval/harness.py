@@ -5,7 +5,9 @@ overlap (replaces the reference's test.py:111-302).
 The port's counterpart of ``coponerf_tpu/eval/harness.py``.  Chunks are a
 Python loop of ``model.render(..., val=True)`` under ``torch.no_grad()`` on
 the model's device; with ``ModelConfig(fast_sampling=True)`` each chunk
-samples its latent levels through K8a (``ops.bilinear_sample``).
+samples its latent levels through K8a (``ops.bilinear_sample``), and a model
+built with a fusion (``CoPoNeRF(..., fusion="render_core")``: K6) renders
+each chunk through it.
 
 Deviations from the reference, by design (as in the JAX package):
   - equal-size ray chunks (plus one trailing partial chunk) instead of

@@ -7,7 +7,8 @@ analogue: data/realestate10k_dataio.py:80-172 get_camera_pose and
 test.py:102-108 make_circle).  Each frame is the evaluation harness's
 chunked render (``eval/harness.py:make_renderer``) with the query's
 ``cam2world`` replaced by the path's pose, so under the fast config a frame
-launches K8a, K2 and K3 as an evaluation image does.  The JAX package maps
+launches K8a, K2 and K3 as an evaluation image does (K8a and K6 where the
+model carries ``fusion="render_core"``).  The JAX package maps
 the frames inside one jitted dispatch (``make_path_renderer``); here they
 are a plain loop.
 """

@@ -21,12 +21,14 @@ With ``fused_argmax`` the UFC extracts both flows through K5
 (``ops.soft_argmax``: its statistics kernel forward, its backward kernel in
 training).
 
-``render(fusion=...)`` (fast bf16 inference only; default None) fuses more
-of the render: ``"attn_embed"`` computes each stage's round-1 and round-2
-logits with K7 (``ops.attn_embed``) from K2's keys and the 16-wide local
-coordinates; ``"render_core"`` (single stage, repeat attention) hands both
-sample sets to K6 (``ops.render_core``), which replaces K2, the keys, both
-attention rounds and K3.
+A fusion (fast bf16 inference only; default None) fuses more of the render:
+``"attn_embed"`` computes each stage's round-1 and round-2 logits with K7
+(``ops.attn_embed``) from K2's keys and the 16-wide local coordinates;
+``"render_core"`` (single stage, repeat attention) hands both sample sets to
+K6 (``ops.render_core``), which replaces K2, the keys, both attention rounds
+and K3.  ``CoPoNeRF(cfg, image_size, fusion=...)`` carries one for every
+inference render, so that the evaluation harness, the camera paths and the
+entries reach it; ``render(fusion=...)`` overrides it for one call.
 """
 
 from __future__ import annotations
@@ -109,13 +111,35 @@ def _eye(n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.eye(n, dtype=like.dtype, device=like.device)
 
 
+FUSIONS = ("attn_embed", "render_core")
+
+
+def check_fusion(cfg: ModelConfig, fusion: Optional[str], train: bool = False) -> None:
+    """Raise ``ValueError`` where a render of ``cfg`` (in training when
+    ``train``) cannot run ``fusion``."""
+    if fusion is None:
+        return
+    if fusion not in FUSIONS:
+        raise ValueError(f"unknown fusion {fusion!r}")
+    if not cfg.fast_sampling or train or cfg.compute_dtype != "bfloat16":
+        raise ValueError(f"fusion={fusion!r} runs in the fast bf16 inference render only "
+                         "(fast_sampling, compute_dtype='bfloat16', train=False)")
+    if fusion == "render_core" and ((cfg.coarse_samples > 0 and cfg.fine_samples > 0) or not cfg.repeat_attention):
+        raise ValueError("fusion='render_core' needs one sampling stage and repeat_attention")
+
+
 class CoPoNeRF(nn.Module):
     """``image_size`` fixes the UFC grid sizes (image/16, /8, /4) and with
-    them the ``pos_embed`` shapes, which flax infers from the first batch."""
+    them the ``pos_embed`` shapes, which flax infers from the first batch.
+    ``fusion`` (None, ``"attn_embed"`` or ``"render_core"``) is the fusion of
+    every inference render that names none; training renders ignore it.  A
+    configuration that cannot run it raises here."""
 
-    def __init__(self, cfg: ModelConfig = ModelConfig(), image_size: int = 256):
+    def __init__(self, cfg: ModelConfig = ModelConfig(), image_size: int = 256, fusion: Optional[str] = None):
         super().__init__()
+        check_fusion(cfg, fusion)
         self.cfg = c = cfg
+        self.fusion = fusion
         bf16 = c.compute_dtype == "bfloat16"
         ufc_dt = torch.bfloat16 if bf16 else None
         cd = torch.bfloat16 if bf16 else None
@@ -257,9 +281,11 @@ class CoPoNeRF(nn.Module):
     @trace.spanned("render")
     def render(self, batch: Dict[str, Any], state: SceneState, val: bool = False,
                train: bool = False, fusion: Optional[str] = None) -> Dict[str, Any]:
-        """``fusion``: None, ``"attn_embed"`` (K7) or ``"render_core"`` (K6);
-        see the module docstring."""
+        """``fusion``: None (the model's own in inference), ``"attn_embed"``
+        (K7) or ``"render_core"`` (K6); see the module docstring."""
         cfg = self.cfg
+        if fusion is None and not train:
+            fusion = self.fusion
         ctx, query = batch["context"], batch["query"]
         B, V = ctx["rgb"].shape[:2]
         H, W = ctx["rgb"].shape[2:4]
@@ -285,14 +311,7 @@ class CoPoNeRF(nn.Module):
         smaj = cfg.fast_sampling and not train
         two_stage = smaj and cfg.coarse_samples > 0 and cfg.fine_samples > 0
         S1 = cfg.coarse_samples if two_stage else S
-        if fusion is not None:
-            if fusion not in ("attn_embed", "render_core"):
-                raise ValueError(f"unknown fusion {fusion!r}")
-            if not smaj or cfg.compute_dtype != "bfloat16":
-                raise ValueError(f"fusion={fusion!r} runs in the fast bf16 inference render only "
-                                 "(fast_sampling, compute_dtype='bfloat16', train=False)")
-            if fusion == "render_core" and (two_stage or not cfg.repeat_attention):
-                raise ValueError("fusion='render_core' needs one sampling stage and repeat_attention")
+        check_fusion(cfg, fusion, train)
 
         def tokf(t, S_):
             """(B*V, N, S_, C) -> (B*V, T, C) in the active token order."""
@@ -551,12 +570,13 @@ class CoPoNeRF(nn.Module):
             if fusion == "render_core":
                 st = stages[0]
                 km2, qe, qe2, enc = self.key_map_2, self.query_embed, self.query_embed_2, self.encode_latent
-                z_sum, at = render_core(
-                    st["samples_p"], st["pt_p"], st["samples_s"], st["pt_s"], st["lc16"],
-                    w1_k, w1_b, fk_a, fk_b, fk_bias, km2.kernel, km2.bias, qe.kernel, qe.bias, qe2.kernel, qe2.bias,
-                    qre_mod.kernel[:ze_rows], qre_mod.kernel[ze_rows:], qre_mod.bias, qre2_mod.kernel, qre2_mod.bias,
-                    enc.kernel, enc.bias, flv_a, flv_b, flv_bias, S, V, n_rays,
-                )
+                with trace.span("render.core"):
+                    z_sum, at = render_core(
+                        st["samples_p"], st["pt_p"], st["samples_s"], st["pt_s"], st["lc16"],
+                        w1_k, w1_b, fk_a, fk_b, fk_bias, km2.kernel, km2.bias, qe.kernel, qe.bias, qe2.kernel,
+                        qe2.bias, qre_mod.kernel[:ze_rows], qre_mod.kernel[ze_rows:], qre_mod.bias, qre2_mod.kernel,
+                        qre2_mod.bias, enc.kernel, enc.bias, flv_a, flv_b, flv_bias, S, V, n_rays,
+                    )
                 at_wt = at.reshape(B, n_rays, V, S).permute(0, 2, 1, 3).reshape(B * V, n_rays, S)
             else:
                 w1_list, at_wt_bv = joint_softmax([st["dot1"] for st in stages])

@@ -13,6 +13,8 @@ place of ``--fast_init``.  The run goes on the CUDA device unless
 ``--device cpu`` is given; without a CUDA device and without that flag it
 exits 2.  The fast config (bf16, coarse-to-fine ``--cf``) renders through
 the K8a, K2 and K3 kernels; ``--exact`` is the f32 single-stage config.
+``--fusion render_core`` (with ``--cf 0,0``) runs K6 in place of K2, the
+attention and K3, ``--fusion attn_embed`` K7 for the attention logits.
 Writes ``frame_%03d.png`` (a zlib writer: no PIL or imageio needed) and
 ``path.mp4`` when ``imageio`` imports.
 """
@@ -43,6 +45,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cf", type=str, default="16,4",
                    help="coarse,fine epipolar samples of the fast config; '0,0' = one uniform stage of 64")
     p.add_argument("--exact", action="store_true", help="the exact f32 config (no bf16, no fast sampling)")
+    p.add_argument("--fusion", type=str, default="none", choices=["none", "render_core", "attn_embed"],
+                   help="the model's render fusion in the fast config: render_core = K6 (needs --cf 0,0), "
+                        "attn_embed = K7 for the attention logits")
     p.add_argument("--circle_radius", type=float, default=None,
                    help="a circular perturbation of the path (test.py:102)")
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
@@ -55,6 +60,18 @@ def main(argv=None) -> int:
     opt = p.parse_args(argv)
     if (opt.checkpoint is None) == (opt.seed is None):
         p.error("pass exactly one of --checkpoint and --seed")
+    from coponerf_tpu_torch.models.coponerf import check_fusion
+
+    cf = tuple(int(x) for x in opt.cf.split(","))
+    if opt.exact:
+        cfg = ModelConfig()
+    else:
+        cfg = ModelConfig(fast_sampling=True, compute_dtype="bfloat16", coarse_samples=cf[0], fine_samples=cf[1])
+    fusion = None if opt.fusion == "none" else opt.fusion
+    try:
+        check_fusion(cfg, fusion)
+    except ValueError as e:
+        p.error(f"--fusion {opt.fusion}: {e}")
     import torch
 
     if opt.device == "cuda" and not torch.cuda.is_available():
@@ -78,12 +95,7 @@ def main(argv=None) -> int:
 
         image_size = opt.image_size
         batch, _ = make_batch(batch_size=1, image_size=image_size, n_rays=16, seed=0)
-    cf = tuple(int(x) for x in opt.cf.split(","))
-    if opt.exact:
-        cfg = ModelConfig()
-    else:
-        cfg = ModelConfig(fast_sampling=True, compute_dtype="bfloat16", coarse_samples=cf[0], fine_samples=cf[1])
-    model = CoPoNeRF(cfg, image_size=image_size).eval()
+    model = CoPoNeRF(cfg, image_size=image_size, fusion=fusion).eval()
     if opt.checkpoint:
         load_weights(model, opt.checkpoint, image_size)
         print(f"loaded {opt.checkpoint}")

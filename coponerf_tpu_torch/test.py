@@ -1,7 +1,7 @@
 """Evaluation entry point of the port.
 
     python -m coponerf_tpu_torch.test --checkpoint_path X.pt|X.npz|X.pth --data_root ... --pose_root ... \
-        [--overlap assets/overlap/realestate.npy] [--n_skip 50] [--fast] [--device cpu]
+        [--overlap assets/overlap/realestate.npy] [--n_skip 50] [--fast [--fusion render_core]] [--device cpu]
 
 The flags are those of the JAX package's ``test.py`` plus ``--device``: the
 run goes on the CUDA device unless ``--device cpu`` is given, and without a
@@ -9,8 +9,11 @@ CUDA device and without that flag it exits 2.  It runs the chunked
 dual-hypothesis eval protocol (``eval/harness.py``) and prints PSNR, SSIM,
 LPIPS (with ``--lpips_weights``, an ``.npz`` of ``eval/lpips.py``'s layout)
 and the pose errors binned by overlap {small<0.5, 0.5<=medium<=0.75,
-large>0.75}.  The checkpoint is one written by the port
-(``training/checkpoint.py``, ``.pt``), one of the JAX package (``.npz``,
+large>0.75}.  ``--fusion`` builds the model with a render fusion
+(``models/coponerf.py``): ``render_core`` runs K6 for everything between the
+fast config's 64 samples a ray and the decoder, ``attn_embed`` K7 for the
+attention logits; both need ``--fast``.  The checkpoint is one written by
+the port (``training/checkpoint.py``, ``.pt``), one of the JAX package (``.npz``,
 ``utils/jax_checkpoint.py``) or the reference's released weights (``.pth``,
 imported by ``utils/torch_import.py``).  Image panels and pose
 scalars go to ``<logging_root>/<experiment_name>/summaries``
@@ -49,6 +52,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run without LPIPS (NOT the full reference protocol)")
     p.add_argument("--fast", action="store_true", default=False,
                    help="throughput config: bf16, every latent level sampled by the K8a kernel")
+    p.add_argument("--fusion", type=str, default="none", choices=["none", "render_core", "attn_embed"],
+                   help="the model's render fusion (needs --fast): render_core = K6 between sampling and the "
+                        "decoder, attn_embed = K7 for the attention logits")
     p.add_argument("--prune_invalid", action="store_true", default=False,
                    help="skip ray chunks outside the epipolar valid mask (the reference renders them and "
                         "overwrites white); rgb is identical, aux outputs zero-fill pruned rays")
@@ -62,7 +68,20 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    opt = parse_with_config(build_parser(), argv)
+    p = build_parser()
+    opt = parse_with_config(p, argv)
+    from coponerf_tpu_torch.models.coponerf import check_fusion
+
+    cfg = ModelConfig(
+        n_view=opt.views,
+        fast_sampling=opt.fast,
+        compute_dtype="bfloat16" if opt.fast else "float32",
+    )
+    fusion = None if opt.fusion == "none" else opt.fusion
+    try:
+        check_fusion(cfg, fusion)
+    except ValueError as e:
+        p.error(f"--fusion {opt.fusion}: {e}")
     if opt.lpips_weights is None and not opt.allow_missing_lpips:
         # the reference protocol always reports LPIPS (test.py:258-263):
         # refuse rather than print a partial table
@@ -88,11 +107,7 @@ def main(argv=None) -> int:
     dataset = Vis(opt.data_root, opt.pose_root, overlap=opt.overlap, n_skip=opt.n_skip,
                   num_ctxt_views=opt.views)
     image_size = dataset.cfg.image_size
-    model = CoPoNeRF(ModelConfig(
-        n_view=opt.views,
-        fast_sampling=opt.fast,
-        compute_dtype="bfloat16" if opt.fast else "float32",
-    ), image_size=image_size).eval().to(opt.device)
+    model = CoPoNeRF(cfg, image_size=image_size, fusion=fusion).eval().to(opt.device)
     load_weights(model, opt.checkpoint_path, image_size)
     logger = MetricLogger(os.path.join(opt.logging_root, opt.experiment_name, "summaries"))
     try:
