@@ -797,7 +797,8 @@ def phase_fusion_kernels(dev, summary, gen) -> bool:
     log(f"[kernels] K6 render_core B=1 V={V} S={S} N={N}: {msg}; kernel {ms:.3f} ms "
         f"({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s of the {flops:.3g} the function needs), plain {pms:.3f} ms, "
         f"library none (no one PyTorch call computes it), bound {bms:.3f} ms ({bby}; bytes {nbytes / 1e9:.2f} GB); "
-        f"device scratch {rc.scratch_bytes(1, V, S, N) / 1e6:.1f} MB (a slot per block)")
+        f"device scratch {rc.scratch_bytes(1, V, S, N) / 1e6:.1f} MB (a slot a ray of a block's group of "
+        f"{rc.group_rays(V * S)})")
     summary["render_core"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None, bound_ms=bms, bound_by=bby)
     del args
     torch.cuda.empty_cache()

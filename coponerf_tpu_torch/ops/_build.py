@@ -65,11 +65,12 @@ SIGNATURES = {
     "k7_round1_logits": [P] * 11 + [L, P],
     # ze, lc, wq, bq, wq2, bq2, wra, wrb, br, wr2, br2 (weights (in, out) f32), out, B, V, S, N, stream
     "k7_round2_logits": [P] * 12 + [I, I, I, I, P],
-    # 4 p levels, pt_p, 4 s levels, pt_s, lc, 22 weights and biases (W1 split into its transposed
-    # matmul rows and its tanh rows), z_sum, at_wt, scratch, scratch bytes, B, V, S, N, stream
-    "k6_render_core": [P] * 36 + [L, I, I, I, I, P],
-    # B, V, S, N -> scratch bytes of one k6_render_core launch on the current device
-    "k6_scratch_bytes": [I, I, I, I],
+    # 4 p levels, pt_p, 4 s levels, pt_s, lc, 21 weights and biases (W1 split into its transposed
+    # matmul rows and its tanh rows; flva and flvb as one), z_sum, at_wt, scratch, scratch bytes,
+    # B, V, S, N, G, stream
+    "k6_render_core": [P] * 35 + [L, I, I, I, I, I, P],
+    # B, V, S, N, G -> scratch bytes of one k6_render_core launch on the current device
+    "k6_scratch_bytes": [I, I, I, I, I],
     # -> the most tokens a ray (V*S) that k6_render_core takes
     "k6_max_tokens": [],
 }

@@ -22,15 +22,22 @@ Returns ``z_sum`` (B, N, 416) and ``at_wt`` (B, N, V*S) f32, ``at_wt``'s
 last axis ordered ``v*S + s``.  Forward only.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises.  The kernel computes W1 once a ray into a
-device scratch slot per block (``scratch_bytes``: ~73 MB at S 64 on 132
-SMs), which the wrapper allocates for each call.
+launches the kernel or raises.  The kernel takes each block's rays in
+groups of ``group_rays(V*S)`` and runs the value products (``z1``, ``ze``,
+``ze @ wra``, ``z_sum``) once a group on the tensor cores; it holds a
+group's W1 outputs in a device scratch slot a ray (``scratch_bytes``:
+3.67 GB at S 64 on 132 SMs), which the wrapper allocates for each call.
+Each launch adds its rays and its groups' row slots to ``trace.counters``
+(``k6_value_rows``, ``k6_value_slots``; ``value_counts``).
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
+from coponerf_tpu_torch import trace
 from coponerf_tpu_torch.ops import _build
 from coponerf_tpu_torch.ops.attn_embed import INV_SCALE, _bf, _check_weights, _device, _embed, _f32
 
@@ -41,6 +48,7 @@ NZ = 416
 
 
 RAY_BLOCK = 4096
+GROUP_ROWS = 64   # rows of the kernel's value product: one wgmma tile
 K = sum(SPLITS)
 # the weights after the token tensors, in argument order, with their shapes
 WEIGHT_SHAPES = (("w1", (K + 3, K)), ("w1b", (K,)), ("fka", (K, H)), ("fkb", (K, H)), ("fk_bias", (H,)),
@@ -145,17 +153,22 @@ def render_core(samples_p, pt_p, samples_s, pt_s, lc, w1, w1b, fka, fkb, fk_bias
     # W1's matmul rows, fka and fkb go K-major (transposed) for wgmma
     ops = (*samples_p, bf(pt_p), *samples_s, bf(pt_s), bf(lc),
            _wt(w1[:K]), _f32(_bf(w1[K:K + 3])), _f32(w1b), _wt(fka), _wt(fkb), _f32(fk_bias), _wt(wk2), _f32(bk2),
-           _wt(wq), _f32(bq), _wt(wq2), _f32(bq2), bf(wra), _wt(wrb), _f32(brr), _wt(wr2), _f32(br2), bf(wenc),
-           _f32(benc), bf(flva), bf(flvb), _f32(flv_bias))
+           _wt(wq), _f32(bq), _wt(wq2), _f32(bq2), _wt(wra), _wt(wrb), _f32(brr), _wt(wr2), _f32(br2), _wt(wenc),
+           _f32(benc), _wt(torch.cat([flva, flvb])), _f32(flv_bias))
     z_sum = torch.empty((B, N, NZ), dtype=torch.float32, device=device)
     at_wt = torch.empty((B, N, V * S), dtype=torch.float32, device=device)
+    G = group_rays(V * S)
     with torch.cuda.device(device):
         nbytes = scratch_bytes(B, V, S, N)
         scratch = torch.empty(nbytes, dtype=torch.uint8, device=device)
         code = _build.lib().k6_render_core(*(t.data_ptr() for t in ops), z_sum.data_ptr(), at_wt.data_ptr(),
-                                           scratch.data_ptr(), nbytes, B, V, S, N, _build.stream_of(z_sum))
+                                           scratch.data_ptr(), nbytes, B, V, S, N, G, _build.stream_of(z_sum))
     _build.check(code, "k6_render_core")
     render_core.launches += 1
+    grid = min(torch.cuda.get_device_properties(device).multi_processor_count, B * N)
+    rows, slots = value_counts(B, N, grid, G)
+    trace.count("k6_value_rows", rows)
+    trace.count("k6_value_slots", slots)
     return z_sum, at_wt
 
 
@@ -165,11 +178,28 @@ def max_tokens() -> int:
     return _build.lib().k6_max_tokens()
 
 
+def group_rays(vs: int) -> int:
+    """G, the rays a block takes through one value product: 64 (the
+    product's row tile) at V*S <= 128, ``64 // ceil(V*S / 128)`` above, so
+    that a block's G slots stay ~27 MB."""
+    return GROUP_ROWS // -(-vs // 128)
+
+
+def value_counts(B: int, N: int, grid: int, G: int) -> Tuple[int, int]:
+    """(rays, row slots) of one launch's value products: block ``i`` of
+    ``grid`` takes rays ``[i*R // grid, (i+1)*R // grid)`` of the R = B*N,
+    in groups of G, and each group has G row slots, its last one padded."""
+    rays = B * N
+    slots = sum(-(-((i + 1) * rays // grid - i * rays // grid) // G) for i in range(grid)) * G
+    return rays, slots
+
+
 def scratch_bytes(B: int, V: int, S: int, N: int) -> int:
-    """Device scratch of one ``render_core`` launch on the current card: a
-    slot per block (one block per SM, at most one per ray) holding the
-    ray's rounded pre-activations and key partials."""
-    n = _build.lib().k6_scratch_bytes(B, V, S, N)
+    """Device scratch of one ``render_core`` launch on the current card, per
+    block (one per SM, at most one per ray): the group's table of weighted
+    sums, a slot a ray of the group holding its rounded pre-activations,
+    one ray's key partials and the group's value-path rows."""
+    n = _build.lib().k6_scratch_bytes(B, V, S, N, group_rays(V * S))
     if n < 0:
         raise RuntimeError("k6_scratch_bytes: no CUDA device")
     return n

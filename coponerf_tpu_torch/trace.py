@@ -22,6 +22,9 @@ was open.  At most ``CAP`` records are kept; spans past it only count in
                losses' global normalisers
   encode_graph_replays  each inference encode that replays its CUDA graphs
                (``models/encode_graph.py``) instead of launching eagerly
+  k6_value_rows, k6_value_slots  each ``render_core`` (K6) launch's rays and
+               the row slots of its groups' value products
+               (``ops/render_core.py:value_counts``)
 
 ``summary()`` groups the finished records by name; ``reset()`` clears the
 records, ``dropped`` and these counters (the launch counters belong to
@@ -50,7 +53,8 @@ _WRAPPERS = (
     ("split_matmul", "split_dense_relu"), ("weighted_sum", "weighted_sum_smaj"),
 )
 
-counters: Dict[str, int] = {"host_syncs": 0, "collectives": 0, "encode_graph_replays": 0}
+counters: Dict[str, int] = {"host_syncs": 0, "collectives": 0, "encode_graph_replays": 0, "k6_value_rows": 0,
+                            "k6_value_slots": 0}
 _records: List["_Record"] = []
 _dropped = 0
 _collecting = 0
@@ -174,9 +178,8 @@ def reset() -> None:
 def summary() -> Dict[str, Any]:
     """{"spans": {name: {calls, parents {name or "": calls}, host_ms,
     device_ms, self_host_ms, self_device_ms, host_syncs, collectives,
-    encode_graph_replays, launches {wrapper: n}}},
-    "counters": {host_syncs, collectives, encode_graph_replays,
-    launches.<wrapper>}, "dropped"}.
+    encode_graph_replays, k6_value_rows, k6_value_slots, launches {wrapper: n}}},
+    "counters": {the same counters, launches.<wrapper>}, "dropped"}.
     ``device_ms`` is the CUDA events' time on the stream the span began on
     (None where a record has none, as on a CPU); the self times are the
     span's less its direct children's.  Waits for the device once."""

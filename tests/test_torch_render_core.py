@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import torch
 
 from coponerf_tpu.ops.pallas.experimental.render_core import render_core as jax_render_core
+from coponerf_tpu_torch import trace
 from coponerf_tpu_torch.ops import render_core as rc
 
 SPLITS = (256, 256, 256, 64)
@@ -90,12 +91,55 @@ def test_render_core_matches_jax(seed):
     np.testing.assert_allclose(at.sum(-1), 1.0, atol=1e-5)
 
 
+K6_COUNTERS = ("k6_value_rows", "k6_value_slots")
+
+
 def test_render_core_cpu_counts_no_launch():
     tok, w = make_inputs(np.random.default_rng(2), 2, 2, 3, 5)
     before = rc.render_core.launches
+    counted = [trace.counters[k] for k in K6_COUNTERS]
     z, at = run_port(tok, w, 3, 2, 5)
     assert z.shape == (2, 5, 416) and at.shape == (2, 5, 6)
     assert rc.render_core.launches == before
+    assert [trace.counters[k] for k in K6_COUNTERS] == counted
+
+
+def _slots_by_walk(B, N, grid, G):
+    """The row slots of the kernel's walk: block i takes rays [lo, hi) and
+    runs a value product for each group of up to G of them."""
+    rays = B * N
+    slots = 0
+    for i in range(grid):
+        lo, hi = i * rays // grid, (i + 1) * rays // grid
+        slots += G * len(range(lo, hi, G))
+    return slots
+
+
+@pytest.mark.parametrize("B, N, grid, vs, rows, slots", [
+    (1, 32768, 132, 128, 32768, 33792),   # eval-s64-pair's launch: 248-249 rays a block, 4 groups of 64
+    (1, 9000, 132, 8, 9000, 16896),       # ragged: 68-69 rays a block, groups of 64 and 4-5
+    (2, 200, 132, 128, 400, 8448),        # 3-4 rays a block, the groups across the b boundary
+    (1, 100, 100, 128, 100, 6400),        # fewer rays than SMs: a block a ray
+    (1, 4096, 132, 160, 4096, 4224),      # V*S 160: G 32, 31-32 rays a block
+    (1, 4300, 132, 160, 4300, 6656),      # V*S 160, ragged: 32-33 rays a block, groups of 32 and 1
+])
+def test_value_counts(B, N, grid, vs, rows, slots):
+    """The counters a K6 launch adds: its rays and the row slots of its
+    groups' value products (G a group), as the kernel walks them."""
+    G = rc.group_rays(vs)
+    assert G == {8: 64, 128: 64, 160: 32}[vs]
+    assert rc.value_counts(B, N, grid, G) == (rows, slots) == (rows, _slots_by_walk(B, N, grid, G))
+    if (B, N) == (1, 32768):
+        assert 100.0 * rows / slots > 96.9
+
+
+def test_group_rays_keeps_a_blocks_slots():
+    """G shrinks as V*S grows, so that a block's slots (G x V*S rounded up
+    to 128 tokens) stay one 64-ray group's at V*S 128; always 1..64."""
+    for vs in range(1, 1025):   # the kernel takes up to 1024 tokens a ray
+        G = rc.group_rays(vs)
+        tiles = -(-vs // 128)
+        assert 1 <= G <= rc.GROUP_ROWS and G * tiles <= rc.GROUP_ROWS < (G + 1) * tiles
 
 
 def test_render_core_bench_inputs_match_jax():
@@ -135,18 +179,27 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B, S, N", [(1, 64, 256), (2, 4, 24), (1, 3, 5), (1, 20, 70), (1, 80, 33), (2, 16, 13)])
+@pytest.mark.parametrize("B, S, N", [(1, 64, 256), (2, 4, 24), (1, 3, 5), (1, 20, 70), (1, 80, 33), (2, 16, 13),
+                                     (1, 4, 9000), (2, 64, 200), (1, 64, 100), (1, 80, 4300)])
 def test_render_core_kernel_matches_plain(cuda, B, S, N):
     """V*S of 128 (the main path's: one 128-token tile a sample set), 8, 6
     and 40 tokens a ray (one ragged tile, the rows past V*S masked), 160
     (two tiles a set, the second ragged), and 32 at B 2 with N 13 (the
     rays of the second batch row, and a ray stride that is no multiple of
-    8)."""
+    8).  The value products' groups (on 132 SMs): 68-69 rays a block at
+    V*S 8, in groups of 64 and a ragged last one; at B 2, N 200 a block's
+    group across the two batch rows; 100 rays, fewer than the SMs, a block
+    each; V*S 160, where G is 32, 32-33 rays a block, a last group of one.
+    Each launch adds its rays and row slots to the trace counters."""
     tok, w = make_inputs(np.random.default_rng(S * N), B, 2, S, N)
     n = rc.render_core.launches
+    counted = [trace.counters[k] for k in K6_COUNTERS]
     got = run_port(tok, w, S, 2, N, cuda)
     torch.cuda.synchronize()
     assert rc.render_core.launches == n + 1
+    grid = min(torch.cuda.get_device_properties(cuda).multi_processor_count, B * N)
+    rows, slots = rc.value_counts(B, N, grid, rc.group_rays(2 * S))
+    assert [trace.counters[k] - c for k, c in zip(K6_COUNTERS, counted)] == [rows, slots]
 
     def t(x):
         return torch.from_numpy(x).to(cuda)
