@@ -44,9 +44,10 @@ result line:
      and stage, K1 never); then the same request's
      encode with fused_argmax (K5), warm-up then timed, its launch counts
      (K5 forward 1, backward 0) and its flows against the unfused encode's;
-     then the same request rendered with render(fusion="attn_embed") (K7)
-     in cf[16, 4], and in the single-stage fast config (S 64) unfused and
-     with fusion="render_core" (K6) in turns, each warm-up then timed, with
+     then the same request rendered by a model of the same weights built
+     with fusion="attn_embed" (K7) in cf[16, 4], and in the single-stage
+     fast config (S 64) unfused and with fusion="render_core" (K6) in
+     turns, each warm-up then timed, with
      launch counts, ms/image, rays/s and peak memory, and each fused
      render's rgb and at_wt against the unfused render of its config;
      the four renders are then profiled once each; then the camera path
@@ -75,9 +76,10 @@ result line:
      frames written and read back, its fused crop + resize against the
      numpy bilinear path (1e-5);
   5. one 1024-ray chunk rendered on the card and on the CPU (where the plain
-     versions run) from the same SceneState and weights, unfused, with
-     fusion="attn_embed" (cf[16, 4]) and with fusion="render_core" (single
-     stage), rgb and at_wt compared at the fast-config bound;
+     versions run) from the same SceneState and weights, unfused and by
+     models built with fusion="attn_embed" (cf[16, 4]) and with
+     fusion="render_core" (single stage), rgb and at_wt compared at the
+     fast-config bound;
   6. the training path (its synthetic batches' host generation timed
      against the step, the cost --synthetic_pool saves the train entry):
      the same widths, fast config (fast_sampling, bf16,
@@ -2102,7 +2104,7 @@ def main() -> int:
 
     # 4c. the same request through the fused renders: K7 in cf[16, 4]; the
     # single-stage config (S 64) unfused and with K6, in turns
-    def render_request(m, fusion, se):
+    def render_request(m, se):
         """The request's val render over its chunks: (rgb, at_wt, seconds, peak bytes)."""
         with torch.no_grad():
             torch.cuda.synchronize()
@@ -2110,7 +2112,7 @@ def main() -> int:
             t0 = time.perf_counter()
             outs = []
             for lo in range(0, n_rays, CHUNK):
-                out = m.render(slice_chunk(batch, lo, lo + CHUNK), state, val=True, fusion=fusion)
+                out = m.render(slice_chunk(batch, lo, lo + CHUNK), state, val=True)
                 check_render(out, CHUNK, se)
                 outs.append((out["rgb"], out["at_wt"]))
             torch.cuda.synchronize()
@@ -2137,9 +2139,10 @@ def main() -> int:
         if launches[path] != expected:
             raise RuntimeError(f"a kernel of the {label} render was not launched as expected")
 
-    ucf = render_request(model, None, SE)
-    count("infer_attn_embed", lambda: render_request(model, "attn_embed", SE))
-    acf = count("infer_attn_embed", lambda: render_request(model, "attn_embed", SE))
+    amodel = model.with_fusion("attn_embed")
+    ucf = render_request(model, SE)
+    count("infer_attn_embed", lambda: render_request(amodel, SE))
+    acf = count("infer_attn_embed", lambda: render_request(amodel, SE))
     log(f"[infer] cf[16, 4] unfused, the request once more: {ucf[2] * 1e3:.1f} ms/image, peak device memory "
         f"{ucf[3] / 2 ** 30:.2f} GiB [{card}]")
     report("infer_attn_embed", "cf[16, 4] fusion=attn_embed (second request)", acf,
@@ -2151,11 +2154,13 @@ def main() -> int:
     smodel = CoPoNeRF(scfg, image_size=IMAGE).eval()
     smodel.load_state_dict(model.state_dict())
     smodel = smodel.to(dev)
+    rcmodel = smodel.with_fusion("render_core")
     single = {None: [], "render_core": []}
     for i in range(2):               # the first of each warms up; the second is timed
         for fusion in ((None, "render_core") if i == 0 else ("render_core", None)):
             path = "infer_single" if fusion is None else "infer_render_core"
-            single[fusion].append(count(path, lambda: render_request(smodel, fusion, scfg.npoints)))
+            m = smodel if fusion is None else rcmodel
+            single[fusion].append(count(path, lambda: render_request(m, scfg.npoints)))
     for fusion, r in single.items():
         log(f"[infer] single stage (S {scfg.npoints}) fusion={fusion}: first request {r[0][2] * 1e3:.1f} ms/image "
             f"(warm-up)")
@@ -2165,11 +2170,12 @@ def main() -> int:
            single["render_core"][1], dict(multilevel_sample=2, render_core=1))
     agree(f"single stage (S {scfg.npoints}) fusion=render_core", single["render_core"][1], single[None][1])
     del single
-    for label, m, fusion, se in (("infer cf[16, 4] unfused", model, None, SE),
-                                 ("infer cf[16, 4] fusion=attn_embed", model, "attn_embed", SE),
-                                 ("infer single stage unfused", smodel, None, scfg.npoints),
-                                 ("infer single stage fusion=render_core", smodel, "render_core", scfg.npoints)):
-        profile_step(lambda: render_request(m, fusion, se), card, label)
+    for label, m, se in (("infer cf[16, 4] unfused", model, SE),
+                         ("infer cf[16, 4] fusion=attn_embed", amodel, SE),
+                         ("infer single stage unfused", smodel, scfg.npoints),
+                         ("infer single stage fusion=render_core", rcmodel, scfg.npoints)):
+        profile_step(lambda: render_request(m, se), card, label)
+    del amodel, rcmodel
     torch.cuda.empty_cache()
     phase_camera_path(model, batch, card, count, launches)
     phase_eval(smodel, dev, card, count, launches)
@@ -2178,19 +2184,20 @@ def main() -> int:
     phase_scene_cache(card)
 
     # 5. the same chunk on the card and on the CPU (plain versions): unfused
-    # and fused in cf[16, 4], and K6 in the single-stage config
+    # and fused in cf[16, 4], and K6 in the single-stage config, each fused
+    # render by a model of the same weights built with its fusion
     small = slice_chunk(batch, 20000, 21024)
     cases = (("unfused", model, None), ("fusion=attn_embed", model, "attn_embed"),
              ("single stage fusion=render_core", smodel, "render_core"))
     with torch.no_grad():
-        out_gpu = [m.render(small, state, val=True, fusion=f) for _, m, f in cases]
+        out_gpu = [m.with_fusion(f).render(small, state, val=True) for _, m, f in cases]
         torch.cuda.synchronize()
         model_cpu, smodel_cpu = model.to("cpu"), smodel.to("cpu")
         cpu_small = {k: {kk: vv.cpu() for kk, vv in v.items()} for k, v in small.items()}
         cpu_state = state.to("cpu")
         for (label, m, fusion), og in zip(cases, out_gpu):
             t0 = time.perf_counter()
-            oc = m.render(cpu_small, cpu_state, val=True, fusion=fusion)
+            oc = m.with_fusion(fusion).render(cpu_small, cpu_state, val=True)
             a, b = og["rgb"].float().cpu(), oc["rgb"].float()
             mrel = ((a - b).abs().mean() / (b.abs().mean() + 1e-6)).item()
             wdiff = (og["at_wt"].cpu() - oc["at_wt"]).abs().mean().item()

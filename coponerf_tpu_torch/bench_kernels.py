@@ -28,13 +28,14 @@ Prints one JSON line with:
   chunk (B 1, V 2, S 64, 32768 rays), ms per call;
 - ``render_cf16_4_ms`` and ``render_cf16_4_attn_embed_ms``: one 256^2
   request in the fast config (cf[16,4], two 32768-ray chunks, encode
-  excluded), unfused and with ``fusion="attn_embed"``, in turns, ms per
+  excluded), unfused and by a model of the same weights built with
+  ``fusion="attn_embed"``, in turns, ms per
   image (median of three turns; ``render_cf16_4_turns_ms`` has each turn,
   and ``render_cf16_4_kernel_ms`` the device kernel time of one more
   request of each under ``torch.profiler``);
 - ``render_single_stage_ms`` and ``render_core_single_stage_ms``: the same
   request in the single-stage fast config (S 64), unfused and with
-  ``fusion="render_core"``, in turns, ms per image;
+  ``fusion="render_core"`` (likewise), in turns, ms per image;
 - ``eval_single_stage_ms`` and ``eval_exact_ms``: one synthetic 256^2 pair
   through ``eval.harness.evaluate`` in the test entry's fast config
   (single stage, S 64, 32768-ray chunks) and in its default exact config
@@ -371,6 +372,7 @@ def time_render_and_eval(dev) -> dict:
     model = init_weights(CoPoNeRF(cfg, image_size=IMAGE).eval(), seed=0).to(dev)
     b, g = make_batch(batch_size=1, image_size=IMAGE, n_rays=IMAGE * IMAGE, seed=0, full_query_image=True)
     batch = batch_to_torch(b, dev)
+    models = {None: model, "attn_embed": model.with_fusion("attn_embed")}
     with torch.no_grad():
         state = model.encode(batch)
 
@@ -378,7 +380,7 @@ def time_render_and_eval(dev) -> dict:
             for lo in range(0, IMAGE * IMAGE, CHUNK):
                 q = dict(batch["query"], uv=batch["query"]["uv"][:, :, lo: lo + CHUNK],
                          rgb=batch["query"]["rgb"][:, :, lo: lo + CHUNK])
-                model.render({"context": batch["context"], "query": q}, state, val=True, fusion=fusion)
+                models[fusion].render({"context": batch["context"], "query": q}, state, val=True)
 
         render(None)
         render("attn_embed")
@@ -390,7 +392,8 @@ def time_render_and_eval(dev) -> dict:
     single = CoPoNeRF(dataclasses.replace(cfg, coarse_samples=0, fine_samples=0), image_size=IMAGE).eval()
     single.load_state_dict(model.state_dict())
     single = single.to(dev)
-    del model, state
+    del model, models, state
+    singles = {None: single, "render_core": single.with_fusion("render_core")}
     with torch.no_grad():
         sstate = single.encode(batch)
 
@@ -398,7 +401,7 @@ def time_render_and_eval(dev) -> dict:
             for lo in range(0, IMAGE * IMAGE, CHUNK):
                 q = dict(batch["query"], uv=batch["query"]["uv"][:, :, lo: lo + CHUNK],
                          rgb=batch["query"]["rgb"][:, :, lo: lo + CHUNK])
-                single.render({"context": batch["context"], "query": q}, sstate, val=True, fusion=fusion)
+                singles[fusion].render({"context": batch["context"], "query": q}, sstate, val=True)
 
         render_single(None)
         render_single("render_core")
@@ -406,7 +409,7 @@ def time_render_and_eval(dev) -> dict:
         for r in range(3):               # in turns, the order reversed every other round
             for fusion in ((None, "render_core") if r % 2 == 0 else ("render_core", None)):
                 times[fusion].append(host_ms(lambda: render_single(fusion), reps=1))
-    del sstate
+    del sstate, singles
     item = ({k: {kk: vv[0] for kk, vv in v.items()} for k, v in b.items()}, {k: v[0] for k, v in g.items()},
             np.float32(1.0))
     with warnings.catch_warnings():

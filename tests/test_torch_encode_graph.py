@@ -127,7 +127,7 @@ def test_contract_matrix_is_made_once_a_key_bit_for_bit(align_corners, dtype):
 @pytest.mark.parametrize("case", ["eval_encode", "train_step"])
 def test_a_second_call_waits_only_where_the_host_reads(model, batch, case):
     """The second eval encode waits nowhere; the second train step only at
-    ``ps_rows``, the five ``linalg.inv`` sites, the finite check and the clip."""
+    ``ps_rows``, the four ``linalg.inv`` sites, the finite check and the clip."""
     if case == "eval_encode":
         span, expected = "encode", 0
 
@@ -135,7 +135,7 @@ def test_a_second_call_waits_only_where_the_host_reads(model, batch, case):
             with torch.no_grad():
                 model.encode(batch)
     else:
-        span, expected = "train_step", 8
+        span, expected = "train_step", 7
         state = trainer.create_train_state(TCFG, SIZE, "cpu", model=copy.deepcopy(model).train())
         tbatch = batch_to_torch(make_batch(batch_size=2, image_size=SIZE, n_rays=8, seed=1)[0], "cpu")
 

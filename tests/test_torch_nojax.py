@@ -1,5 +1,5 @@
-"""The port runs without JAX: an inference render (also with both
-``render(fusion=...)`` options), a train step, the latter also with
+"""The port runs without JAX: an inference render (also on models built
+with either fusion), a train step, the latter also with
 ``fused_argmax=True``, and one with ``conv4d_impl="3d"``,
 ``remat_policy="dots"`` and the flat optimizer, written and read back as
 a ``ufc_scan`` + ``flat_optimizer`` ``.npz``, the evaluation layer (harness, metrics, LPIPS,
@@ -67,11 +67,12 @@ with torch.no_grad():
     state = model.encode(tb)
     out = model.render(tb, state, val=True)
     assert torch.isfinite(out["rgb"]).all()
-    out = model.render(tb, state, val=True, fusion="attn_embed")
+    out = model.with_fusion("attn_embed").render(tb, state, val=True)
     assert torch.isfinite(out["rgb"]).all()
-    single = CoPoNeRF(dataclasses.replace(cfg, coarse_samples=0, fine_samples=0), image_size=32).eval()
+    single = CoPoNeRF(dataclasses.replace(cfg, coarse_samples=0, fine_samples=0), image_size=32,
+                      fusion="render_core").eval()
     single.load_state_dict(model.state_dict())
-    out = single.render(tb, state, val=False, fusion="render_core")
+    out = single.render(tb, state, val=False)
     assert torch.isfinite(out["rgb"]).all()
 eb, eg = make_batch(batch_size=1, image_size=32, n_rays=32 * 32, seed=2, full_query_image=True)
 item = ({k: {kk: vv[0] for kk, vv in v.items()} for k, v in eb.items()}, {k: v[0] for k, v in eg.items()}, 1.0)
@@ -178,11 +179,12 @@ def test_cpu_tensors_take_the_plain_versions():
         state = model.encode(tb)
         out = model.render(tb, state, val=True)
         assert torch.isfinite(out["rgb"]).all()
-        out = model.render(tb, state, val=True, fusion="attn_embed")
+        out = model.with_fusion("attn_embed").render(tb, state, val=True)
         assert torch.isfinite(out["rgb"]).all()
-        single = CoPoNeRF(dataclasses.replace(cfg, coarse_samples=0, fine_samples=0), image_size=32).eval()
+        single = CoPoNeRF(dataclasses.replace(cfg, coarse_samples=0, fine_samples=0), image_size=32,
+                          fusion="render_core").eval()
         single.load_state_dict(model.state_dict())
-        out = single.render(tb, state, val=True, fusion="render_core")
+        out = single.render(tb, state, val=True)
         assert torch.isfinite(out["rgb"]).all()
     out = model(tb, val=False, train=True)
     out["rgb"].sum().backward()

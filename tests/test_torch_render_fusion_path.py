@@ -1,16 +1,14 @@
 """A fusion carried by the model (``CoPoNeRF(cfg, image_size, fusion=...)``)
 on the port's normal path: the evaluation harness's ``make_renderer`` and
 ``evaluate`` on a model built with ``fusion="render_core"`` give what
-chunked ``render(..., fusion="render_core")`` calls give, bit for bit; a
-model built with the default renders as ``render()`` with no fusion; the
-constructor refuses what K6 cannot run; training renders ignore the
-model's fusion; and the ``test`` and ``render_path`` entries build their
-model with ``--fusion``.  Torch only, on the CPU, where K6's wrapper runs
+chunked ``render()`` calls of such a model give, bit for bit; a model built
+with the default renders unfused; the constructor refuses what K6 cannot
+run; training renders ignore the model's fusion; and the ``test`` and
+``render_path`` entries build their model with ``--fusion``.  Torch only, on the CPU, where K6's wrapper runs
 its plain version, at the tiny sizes of ``tests/test_torch_slice_fused.py``.
 """
 
 import dataclasses
-import functools
 import warnings
 
 import numpy as np
@@ -62,15 +60,15 @@ def models():
     return fused, plain, batch, state
 
 
-def _chunked(model, batch, state, fusion):
-    """``render(val=True, fusion=fusion)`` over ``CHUNK``-ray chunks, the
-    ``KEYS`` assembled as the harness assembles them."""
+def _chunked(model, batch, state):
+    """``model.render(val=True)`` over ``CHUNK``-ray chunks, the ``KEYS``
+    assembled as the harness assembles them."""
     parts = {k: [] for k in KEYS}
     with torch.no_grad():
         for a in range(0, N_RAYS, CHUNK):
             q = dict(batch["query"], uv=batch["query"]["uv"][:, :, a:a + CHUNK],
                      rgb=batch["query"]["rgb"][:, :, a:a + CHUNK])
-            out = model.render({"context": batch["context"], "query": q}, state, val=True, fusion=fusion)
+            out = model.render({"context": batch["context"], "query": q}, state, val=True)
             for k in KEYS:
                 parts[k].append(out[k])
     return {k: torch.cat(v, dim=2 if k == "rgb" else 1) for k, v in parts.items()}
@@ -81,7 +79,7 @@ def test_make_renderer_runs_the_models_fusion(models, k6_calls):
     _, render_image = make_renderer(fused, CHUNK, keys=KEYS)
     got = render_image(batch, state, N_RAYS)
     assert len(k6_calls) == 3                        # one K6 call a chunk
-    want = _chunked(plain, batch, state, "render_core")
+    want = _chunked(plain.with_fusion("render_core"), batch, state)
     for k in KEYS:
         assert torch.equal(got[k], want[k]), k
 
@@ -91,13 +89,13 @@ def test_default_model_renders_unfused(models, k6_calls):
     assert plain.fusion is None and fused.fusion == "render_core"
     _, render_image = make_renderer(plain, CHUNK, keys=KEYS)
     got = render_image(batch, state, N_RAYS)
-    want = _chunked(plain, batch, state, None)
+    want = _chunked(plain, batch, state)
     assert not k6_calls
     for k in KEYS:
         assert torch.equal(got[k], want[k]), k
-    # a call's own fusion overrides the model's
-    assert torch.equal(_chunked(fused, batch, state, "attn_embed")["rgb"],
-                       _chunked(plain, batch, state, "attn_embed")["rgb"])
+    # a model's own fusion decides its renders, whichever model its weights came from
+    assert torch.equal(_chunked(fused.with_fusion("attn_embed"), batch, state)["rgb"],
+                       _chunked(plain.with_fusion("attn_embed"), batch, state)["rgb"])
 
 
 def _eval_set():
@@ -107,15 +105,14 @@ def _eval_set():
              np.float32(0.3))]
 
 
-def test_evaluate_runs_the_models_fusion(models, k6_calls, monkeypatch):
+def test_evaluate_runs_the_models_fusion(models, k6_calls):
     fused, plain, *_ = models
     ds, kw = _eval_set(), dict(batch_size=1, chunk=IMG * IMG // 2, image_size=IMG, verbose=False)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")              # no LPIPS column
         got = evaluate(fused, ds, **kw)
         assert len(k6_calls) == 2                    # two chunks a scene
-        monkeypatch.setattr(plain, "render", functools.partial(CoPoNeRF.render, plain, fusion="render_core"))
-        want = evaluate(plain, ds, **kw)
+        want = evaluate(plain.with_fusion("render_core"), ds, **kw)
     assert len(k6_calls) == 4
     for b in got.BINS:
         assert set(got.metrics[b]) == set(want.metrics[b])
@@ -141,8 +138,11 @@ def test_construction_takes_what_the_fusion_runs():
                     fusion="attn_embed").fusion == "attn_embed"
 
 
-def test_training_renders_ignore_the_models_fusion(models, k6_calls):
-    fused, plain, _, _ = models
+@pytest.mark.parametrize("fusion", ["attn_embed", "render_core"])
+def test_training_renders_ignore_the_models_fusion(models, k6_calls, fusion):
+    _, plain, _, _ = models
+    fused = plain.with_fusion(fusion)
+    assert all(a.data_ptr() == b.data_ptr() for a, b in zip(fused.state_dict().values(), plain.state_dict().values()))
     batch = batch_to_torch(make_batch(batch_size=1, image_size=IMG, n_rays=16, seed=1)[0], "cpu")
     with torch.no_grad():
         state = plain.encode(batch, train=True)
@@ -151,8 +151,6 @@ def test_training_renders_ignore_the_models_fusion(models, k6_calls):
     assert not k6_calls
     for k in ("rgb", "at_wt", "depth_ray"):
         assert torch.equal(got[k], want[k]), k
-    with pytest.raises(ValueError):
-        fused.render(batch, state, train=True, fusion="render_core")
 
 
 class _Built(Exception):

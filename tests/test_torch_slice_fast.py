@@ -10,8 +10,9 @@ package's own fast and exact encodes give relative poses ~0.15 apart.  So
 the val-mode render, whose second hypothesis is posed by that estimate, is
 held to JAX on JAX's own SceneState (converted), and the port's end-to-end
 encode+render is held to JAX in non-val mode, which does not read the pose.
-The same holds for ``render(fusion="attn_embed")`` (K7 computes both
-attention rounds' logits), held to the same unfused JAX renders.
+The same holds for a model of the same weights built with
+``fusion="attn_embed"`` (K7 computes both attention rounds' logits), held
+to the same unfused JAX renders.
 """
 
 import numpy as np
@@ -74,14 +75,15 @@ def fast_pair():
     port = CoPoNeRF(CFG, image_size=IMG).eval()
     port.load_state_dict(convert(jax.tree.map(np.asarray, variables)), strict=True)
     tb = batch_to_torch(batch_np, "cpu")
+    fused = port.with_fusion("attn_embed")
     with torch.no_grad():
         state = port.encode(tb)
         got = {
             "own_nonval": port.render(tb, state, val=False),
             "own_val": port.render(tb, state, val=True),
             "jaxstate_val": port.render(tb, _to_port_state(jstate), val=True),
-            "fused_nonval": port.render(tb, state, val=False, fusion="attn_embed"),
-            "fused_jaxstate_val": port.render(tb, _to_port_state(jstate), val=True, fusion="attn_embed"),
+            "fused_nonval": fused.render(tb, state, val=False),
+            "fused_jaxstate_val": fused.render(tb, _to_port_state(jstate), val=True),
         }
     return jstate, ref, state, got
 

@@ -1,4 +1,4 @@
-"""``render(fusion=...)``: the fast inference render with K7
+"""A model built with a fusion: the fast inference render with K7
 (``"attn_embed"``: both attention rounds' logits) or K6 (``"render_core"``:
 everything between sampling and the decoder), held to the JAX model's
 UNFUSED fast render at the fast slice's bounds (mean-relative rgb < 2e-2,
@@ -6,12 +6,11 @@ mean at_wt error < 2e-2; ``tests/test_torch_slice_fast.py``), val and
 non-val, in the tiny config of that file as one stage of 8 samples (both
 fusions).  Its cf(6, 4) form (``attn_embed`` only: K6 serves one stage)
 is held to JAX in ``tests/test_torch_slice_fast.py``, which computes the
-JAX references of that configuration anyway.  As there, the val render is
+JAX references of that configuration anyway.  Each fused model holds the
+unfused model's weights (``CoPoNeRF.with_fusion``).  As there, the val render is
 held to JAX on JAX's own SceneState and the non-val render runs on the
 port's own encode.  On the CPU the kernels' plain versions run.
 """
-
-import dataclasses
 
 import numpy as np
 import pytest
@@ -76,12 +75,13 @@ def rendered():
     tb = batch_to_torch(batch_np, "cpu")
     with torch.no_grad():
         own, theirs = port.encode(tb), _to_port_state(jstate)
-        got = {(f, v): port.render(tb, theirs if v else own, val=v, fusion=f) for f in FUSIONS for v in (False, True)}
-    return ref, got, port, tb, own
+        fused = {f: port.with_fusion(f) for f in FUSIONS}
+        got = {(f, v): fused[f].render(tb, theirs if v else own, val=v) for f in FUSIONS for v in (False, True)}
+    return ref, got
 
 
 def test_fused_render_matches_jax_unfused(rendered):
-    ref, got, *_ = rendered
+    ref, got = rendered
     for (fusion, val), out in got.items():
         jout = ref[val]
         assert out["rgb"].shape == (1, 1, N_RAYS, 3), fusion
@@ -92,24 +92,10 @@ def test_fused_render_matches_jax_unfused(rendered):
 
 
 def test_fused_render_weights_sum_to_one(rendered):
-    _, got, *_ = rendered
+    _, got = rendered
     for (fusion, val), out in got.items():
         w = _np(out["at_wt"]).reshape(1, 2, N_RAYS, SE)
         np.testing.assert_allclose(w.sum(axis=(1, 3)), 1.0, atol=1e-4, err_msg=f"{fusion} val={val}")
         assert out["pixel_val"].shape[-2] == SE
         for k in ("depth_ray", "T_to_C1_pts", "matchability_cycle_mask"):
             assert torch.isfinite(out[k]).all(), (fusion, k)
-
-
-def test_fusion_refuses_what_it_cannot_run(rendered):
-    *_, port, tb, own = rendered
-    with pytest.raises(ValueError):
-        port.render(tb, own, fusion="no_such_fusion")
-    with pytest.raises(ValueError):
-        port.render(tb, own, train=True, fusion="attn_embed")
-    two_stage = CoPoNeRF(dataclasses.replace(port.cfg, coarse_samples=6, fine_samples=4), image_size=IMG)
-    with pytest.raises(ValueError):
-        two_stage.render(tb, own, fusion="render_core")
-    exact = CoPoNeRF(dataclasses.replace(port.cfg, fast_sampling=False, compute_dtype="float32"), image_size=IMG)
-    with pytest.raises(ValueError):
-        exact.render(tb, own, fusion="attn_embed")
